@@ -1,0 +1,380 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (wisecondorx_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each printing one JSON line on stdout (logs go to stderr):
+
+1. device  -- requires torch.cuda.is_available(); prints the card's name
+   and power limit as nvidia-smi reports them;
+2. build   -- compiles the CUDA kernels from wisecondorx_tpu_torch/csrc;
+3. cohort  -- a synthetic cohort at 50 kb bins over the whole genome
+   (tests/synthetic.py CohortSim, genome_scale 1.0, ~62k bins), 100 female +
+   100 male controls, seed 0, written as convert-stage sample npz files;
+4. newref  -- ``wisecondorx_tpu_torch.cli newref --device cuda``;
+5. predict -- ``predict --bed`` on a trisomy-21 sample (must call a chr21
+   gain, and the bins table must cover every bin) and on a euploid sample
+   (must call no whole-chromosome aberration);
+6. kernels -- at the A-pass shape of the reference newref wrote (its mask
+   and layout; rows = masked bins, 200 samples): K1 and K2 against their
+   plain PyTorch versions on integer-valued inputs, where every distance is
+   exact (tolerance 0), with times; and the stored A-pass neighbours
+   against the exact float64 search of the same PCA-corrected rows
+   (neighbour-set agreement, mean >= 99.9 %, min >= 299 of 300).
+
+The kernels' launch counters are set to 0 just before newref and read just
+after predict: both kernels must have run on that path.  Then one JSON line
+lists the kernels, and the last line is
+``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
+Any failure raises, and the script exits non-zero without that line.  It
+writes only under build/chip_smoke/ in the checkout.
+"""
+
+import json
+import os
+import shutil
+import subprocess
+import sys
+import time
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+WORK = os.path.join(REPO, "build", "chip_smoke")
+BINSIZE = 50000
+GENOME_SCALE = 1.0
+N_FEMALE = N_MALE = 100
+SEED = 0
+REFSIZE = 300
+#: The KNN bar of the JAX package's f32 Pallas path against its f64
+#: oracle (dev/tpu_vs_oracle.py): mean agreement >= 99.9 % and min
+#: "99.67 %", which is 299 of 300 neighbours printed to two decimals.
+MEAN_AGREE, MIN_AGREE = 0.999, 299 / 300
+#: K1's masking threshold per sample in the kernel-vs-plain check.  Two
+#: rows of integers drawn from [0, 8) lie 2 * 63/12 = 10.5 apart per sample
+#: on average, so about half of the candidates reach the threshold and take
+#: the ``d >= sentinel`` branch (on the real data the sentinel is far above
+#: every distance).
+INT_SENTINEL_PER_SAMPLE = 10.5
+
+
+def emit(phase, **fields):
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def cuda_ms(fn, reps=3):
+    """Mean device time of ``fn`` over ``reps`` runs after one warm run."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def phase_device():
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
+    for part in ("wisecondorx_tpu_torch", os.path.join("tests", "synthetic.py")):
+        if not os.path.exists(os.path.join(REPO, part)):
+            raise SystemExit(f"chip_smoke: {part} is missing; run from a checkout")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    emit("device", nvidia_smi=smi, torch=torch.__version__,
+         cuda=torch.version.cuda, count=torch.cuda.device_count())
+    return torch.device("cuda")
+
+
+def phase_build():
+    from wisecondorx_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    path = _build.build()
+    _build.load()
+    ptxas = [ln.split("ptxas info    : ")[1] for ln in _build.build_log.splitlines()
+             if "Used" in ln]
+    emit("build", seconds=round(time.perf_counter() - t0, 3),
+         library=os.path.relpath(path, REPO), ptxas=ptxas)
+
+
+def save_sample(path, sample):
+    """A convert-stage sample npz (the schema both CLIs read)."""
+    import numpy as np
+
+    np.savez_compressed(path, binsize=BINSIZE, sample=sample,
+                        quality={"mapped": 1})
+
+
+def make_cohort():
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from synthetic import CohortSim
+
+    t0 = time.perf_counter()
+    shutil.rmtree(WORK, ignore_errors=True)
+    os.makedirs(WORK)
+    sim = CohortSim(binsize=BINSIZE, genome_scale=GENOME_SCALE, seed=SEED)
+    samples, _ = sim.cohort(N_FEMALE, N_MALE)
+    files = []
+    for i, s in enumerate(samples):
+        path = os.path.join(WORK, f"control_{i:03d}.npz")
+        save_sample(path, s)
+        files.append(path)
+    n21 = len(sim.bias[20])
+    t21 = os.path.join(WORK, "case_t21.npz")
+    save_sample(t21, sim.sample("F", cnvs=[(21, 0, n21, 3.0)]))
+    euploid = os.path.join(WORK, "case_euploid.npz")
+    save_sample(euploid, sim.sample("M"))
+    emit("cohort", seconds=round(time.perf_counter() - t0, 3),
+         samples=len(files), bins=int(sim.bins.sum()), binsize=BINSIZE)
+    return samples, files, t21, euploid
+
+
+def phase_newref(files):
+    from wisecondorx_tpu_torch import cli
+    from wisecondorx_tpu_torch.utils.log import reset_stage_times, stage_times
+
+    ref = os.path.join(WORK, "reference.npz")
+    reset_stage_times()
+    t0 = time.perf_counter()
+    cli.main(["newref", *files, ref, "--binsize", str(BINSIZE),
+              "--refsize", str(REFSIZE), "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    emit("newref", seconds=round(wall, 3),
+         stages={k: round(v, 3) for k, v in stage_times().items()})
+    return ref
+
+
+def phase_predict(ref, case, tag, want_gain_chr):
+    import numpy as np
+
+    from wisecondorx_tpu_torch import cli
+    from wisecondorx_tpu_torch.utils.log import reset_stage_times, stage_times
+
+    outid = os.path.join(WORK, tag)
+    reset_stage_times()
+    t0 = time.perf_counter()
+    cli.main(["predict", case, ref, outid, "--bed", "--device", "cuda"])
+    wall = time.perf_counter() - t0
+
+    n_rows = len(open(outid + "_bins.bed").read().splitlines()) - 1
+    with open(outid + "_aberrations.bed") as f:
+        rows = [ln.split("\t") for ln in f.read().splitlines()[1:]]
+    stats = open(outid + "_statistics.txt").read().splitlines()
+    gender = next(ln.split(": ")[1] for ln in stats if ln.startswith("Gender"))
+    bins_per_chr = np.load(ref)[f"bins_per_chr.{gender}"]
+    if n_rows != int(np.sum(bins_per_chr)):
+        raise AssertionError(
+            f"{tag}: bins.bed has {n_rows} rows, want {np.sum(bins_per_chr)}"
+        )
+    names = {str(c + 1): c for c in range(22)} | {"X": 22, "Y": 23}
+    whole = []
+    for r in rows:
+        span = (int(r[2]) - int(r[1]) + 1) / BINSIZE
+        if span >= 0.9 * bins_per_chr[names[r[0]]]:
+            whole.append(f"{r[0]}:{r[-1]}")
+    emit("predict", sample=tag, gender=gender, seconds=round(wall, 3),
+         aberrations=[f"{r[0]}:{r[1]}-{r[2]}:{r[-1]}" for r in rows],
+         whole_chromosome=whole,
+         stages={k: round(v, 3) for k, v in stage_times().items()})
+    if want_gain_chr is None:
+        if whole:
+            raise AssertionError(f"{tag}: whole-chromosome calls {whole}")
+    elif f"{want_gain_chr}:gain" not in whole:
+        raise AssertionError(f"{tag}: no chr{want_gain_chr} gain in {rows}")
+
+
+def a_pass(samples, ref, device):
+    """The A pass of the reference newref wrote: its pass dict, masked
+    layout, and the PCA-corrected float32 rows it searched (rebuilt from
+    the cohort with newref's own functions and the stored mask)."""
+    import numpy as np
+    import torch
+
+    from wisecondorx_tpu_torch.models.ref_loader import load_reference
+    from wisecondorx_tpu_torch.models.reference import (
+        NewrefConfig,
+        _normalize_and_pca,
+        cohort_matrix,
+    )
+
+    dref = load_reference(ref, device)
+    ref_a, ml = dref.passes["A"], dref.tables["A"].ml
+    for key in ("indexes", "distances", "null_ratios", "pca_components"):
+        if not np.isfinite(ref_a[key]).all():
+            raise AssertionError(f"reference member {key} is not finite")
+    cfg = NewrefConfig(binsize=BINSIZE, refsize=REFSIZE)
+    matrix = cohort_matrix([(s, BINSIZE) for s in samples], cfg)[0]
+    cohort = torch.as_tensor(matrix[: ml.layout.total_bins],
+                             dtype=torch.float32, device=device)
+    corrected = _normalize_and_pca(cohort, ml.mask, cfg)[0]
+    if ref_a["indexes"].shape != (ml.n_masked, REFSIZE):
+        raise AssertionError(f"indexes shape {ref_a['indexes'].shape}")
+    return ref_a, ml, corrected
+
+
+def phase_kernels(samples, ref, device):
+    """K1/K2 against their plain versions, and the stored neighbours
+    against the exact float64 search, at the A-pass shape."""
+    import numpy as np
+    import torch
+
+    from wisecondorx_tpu_torch.ops import knn, knn_cuda
+
+    ref_a, ml, corrected = a_pass(samples, ref, device)
+    n, s = corrected.shape
+    lanes, depth = knn_cuda.LANES, knn_cuda.DEPTH
+
+    # K1 / K2 on integer-valued inputs of the first row chunk's shape.
+    rng = np.random.default_rng(SEED)
+    n_pad = -(-n // lanes) * lanes
+    s_pad = -(-s // knn_cuda.S_MULTIPLE) * knn_cuda.S_MULTIPLE
+    cand = torch.zeros((n_pad, s_pad), dtype=torch.float32, device=device)
+    cand[:n, :s] = torch.as_tensor(rng.integers(0, 8, size=(n, s)),
+                                   dtype=torch.float32, device=device)
+    cnorm = (cand * cand).sum(dim=1)
+    cchr = torch.full((cand.shape[0],), -2, dtype=torch.int32, device=device)
+    cchr[:n] = torch.as_tensor(ml.chr_of_masked_bin, device=device)
+    starts = torch.as_tensor(ml.masked_chr_starts, dtype=torch.int32, device=device)
+    sizes = torch.as_tensor(ml.masked_bins_per_chr, dtype=torch.int32, device=device)
+    r = min(knn_cuda.ROW_CHUNK, n)
+    rchr = cchr[:r]
+    sentinel = INT_SENTINEL_PER_SAMPLE * s
+    args = (cand[:r], cnorm[:r], rchr, starts[rchr.long()].contiguous(),
+            sizes[rchr.long()].contiguous(), cand, cnorm, cchr, n, sentinel)
+    got = knn_cuda.bucket_scan(*args)
+    want = knn_cuda.bucket_scan_reference(*args, lanes=lanes, depth=depth)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+            and torch.equal(got[2], want[2])):
+        raise AssertionError("K1 pools differ from bucket_scan_reference")
+    d = cnorm[:256, None] + cnorm[None, :n] - 2.0 * (cand[:256] @ cand[:n].T)
+    sentinel_share = float((d >= sentinel).double().mean())
+    del d
+    if not 0.0 < sentinel_share < 1.0:
+        raise AssertionError(f"sentinel {sentinel} masks {sentinel_share} of K1's input")
+    k1_err = max(_max_abs(got[0], want[0]), _max_abs(got[2], want[2]))
+    k1_ms = cuda_ms(lambda: knn_cuda.bucket_scan(*args))
+    k1_plain_ms = cuda_ms(
+        lambda: knn_cuda.bucket_scan_reference(*args, lanes=lanes, depth=depth)
+    )
+    top = knn_cuda.extract_topk(*got, REFSIZE)
+    top_ref = knn_cuda.extract_topk_reference(*want, REFSIZE)
+    torch.cuda.synchronize()
+    finite = torch.isfinite(top[0])
+    if not (torch.equal(top[0], top_ref[0]) and torch.equal(top[2], top_ref[2])
+            and torch.equal(top[1][finite], top_ref[1][finite])):
+        raise AssertionError("K2 differs from extract_topk_reference")
+    k2_err = _max_abs(top[0], top_ref[0])
+    k2_ms = cuda_ms(lambda: knn_cuda.extract_topk(*got, REFSIZE))
+    k2_plain_ms = cuda_ms(lambda: knn_cuda.extract_topk_reference(*want, REFSIZE))
+    del got, want, top, top_ref, args, cand
+
+    # The kernel search and the exact float64 search of the A pass, timed;
+    # the neighbours newref stored are held against the exact ones.
+    layout_args = (ml.chr_of_masked_bin, ml.masked_chr_starts,
+                   ml.masked_bins_per_chr)
+    stats = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    knn_cuda.knn_search_cuda(corrected, *layout_args, REFSIZE, stats=stats)
+    torch.cuda.synchronize()
+    search_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    idx_e, dist_e = knn.knn_search_exact(corrected.double(), *layout_args,
+                                         REFSIZE)
+    torch.cuda.synchronize()
+    exact_s = time.perf_counter() - t0
+    stored_idx = torch.as_tensor(ref_a["indexes"].astype(np.int64), device=device)
+    stored_dist = torch.as_tensor(ref_a["distances"], dtype=torch.float64,
+                                  device=device)
+    agree = _agreement(stored_idx, idx_e, REFSIZE)
+    rel = (stored_dist - dist_e).abs() / dist_e.abs().clamp(min=1e-300)
+    result = dict(
+        rows=n, samples=s, ref_size=REFSIZE, lanes=lanes, depth=depth,
+        k1_sentinel=sentinel, k1_sentinel_share=sentinel_share,
+        agree_mean=agree.mean(), agree_min=agree.min(),
+        dist_rel_err_median=float(rel.median()),
+        flagged_rows=stats["flagged_rows"],
+        rerun_share=stats["flagged_rows"] / stats["n_rows"],
+        search_s=round(search_s, 4), exact_f64_s=round(exact_s, 4),
+        k1_ms=k1_ms, k1_plain_ms=k1_plain_ms, k2_ms=k2_ms,
+        k2_plain_ms=k2_plain_ms,
+    )
+    emit("kernels", **result)
+    if agree.mean() < MEAN_AGREE or agree.min() < MIN_AGREE:
+        raise AssertionError(f"neighbour agreement below the bar: {result}")
+    return result, k1_err, k2_err
+
+
+def _max_abs(a, b):
+    import torch
+
+    both = torch.isfinite(a) & torch.isfinite(b)
+    if not torch.equal(torch.isfinite(a), torch.isfinite(b)):
+        return float("inf")
+    return float((a[both] - b[both]).abs().max()) if both.any() else 0.0
+
+
+def _agreement(idx_a, idx_b, k):
+    """Per-row share of common neighbours (dev/tpu_vs_oracle.py's metric)."""
+    import torch
+
+    a = torch.sort(idx_a, dim=1).values
+    b = torch.sort(idx_b, dim=1).values
+    # |a ∩ b| of sorted rows of distinct values via searchsorted.
+    pos = torch.searchsorted(b, a).clamp(max=k - 1)
+    common = (b.gather(1, pos) == a).sum(dim=1).double() / k
+    return common.cpu().numpy()
+
+
+def main():
+    device = phase_device()
+    import torch
+
+    from wisecondorx_tpu_torch.ops import knn_cuda
+
+    phase_build()
+    samples, files, t21, euploid = make_cohort()
+
+    knn_cuda.reset_launch_counts()
+    ref = phase_newref(files)
+    phase_predict(ref, t21, "case_t21", want_gain_chr="21")
+    phase_predict(ref, euploid, "case_euploid", want_gain_chr=None)
+    launches = dict(knn_cuda.LAUNCHES)
+    for name, count in launches.items():
+        if count < 1:
+            raise AssertionError(f"kernel {name} was not launched on the main path")
+
+    torch.cuda.empty_cache()
+    result, k1_err, k2_err = phase_kernels(samples, ref, device)
+
+    kernels = [
+        {"name": "knn_bucket", "route": "cuda",
+         "source": "wisecondorx_tpu_torch/csrc/knn_bucket.cu",
+         "replaces": "wisecondorx_tpu/ops/knn_pallas.py:54",
+         "launches": launches["knn_bucket"], "max_abs_err": k1_err,
+         "ms": result["k1_ms"], "plain_ms": result["k1_plain_ms"]},
+        {"name": "knn_topk", "route": "cuda",
+         "source": "wisecondorx_tpu_torch/csrc/knn_topk.cu",
+         "replaces": "wisecondorx_tpu/ops/knn_pallas.py:228",
+         "launches": launches["knn_topk"], "max_abs_err": k2_err,
+         "ms": result["k2_ms"], "plain_ms": result["k2_plain_ms"]},
+    ]
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,99 @@
+"""The CUDA kernels of the PyTorch port on the card: each against its plain
+PyTorch version on the same CUDA tensors.  Marked ``cuda``; each test
+skips where no CUDA device is present.  On a machine with an NVIDIA
+Hopper GPU and nvcc: ``python -m pytest -m cuda tests/test_torch_cuda.py``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from torch_parity import layout
+from wisecondorx_tpu_torch.ops import knn as tknn
+from wisecondorx_tpu_torch.ops import knn_cuda
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _integer_inputs(dev, n=6000, s=64, r=3000, offset=100, seed=0):
+    """Integer-valued float32 inputs: every distance is exact in float32,
+    so a kernel and its plain version must agree bit for bit."""
+    rng = np.random.default_rng(seed)
+    bins = [n // 4] * 3 + [n - 3 * (n // 4)]
+    starts, chr_of_bin = layout(bins)
+    lanes = knn_cuda.LANES
+    n_pad = -(-n // lanes) * lanes
+    cand = torch.zeros((n_pad, s), device=dev)
+    cand[:n] = torch.as_tensor(rng.integers(0, 8, (n, s)), dtype=torch.float32,
+                               device=dev)
+    cnorm = (cand * cand).sum(dim=1)
+    cchr = torch.full((n_pad,), -2, dtype=torch.int32, device=dev)
+    cchr[:n] = torch.as_tensor(chr_of_bin, device=dev)
+    st = torch.as_tensor(starts, dtype=torch.int32, device=dev)
+    sz = torch.as_tensor(bins, dtype=torch.int32, device=dev)
+    rchr = cchr[offset : offset + r]
+    return (cand[offset : offset + r], cnorm[offset : offset + r], rchr,
+            st[rchr.long()].contiguous(), sz[rchr.long()].contiguous(),
+            cand, cnorm, cchr, n)
+
+
+@pytest.mark.parametrize("sentinel", [1e30, 120.0])
+def test_k1_k2_equal_plain_versions(dev, sentinel):
+    *args, n = _integer_inputs(dev)
+    got = knn_cuda.bucket_scan(*args, n, sentinel)
+    want = knn_cuda.bucket_scan_reference(
+        *args, n, sentinel, lanes=knn_cuda.LANES, depth=knn_cuda.DEPTH
+    )
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    for k in (300, 17):
+        g2 = knn_cuda.extract_topk(*got, k)
+        w2 = knn_cuda.extract_topk_reference(*want, k)
+        torch.cuda.synchronize()
+        assert torch.equal(g2[0], w2[0]) and torch.equal(g2[2], w2[2])
+        finite = torch.isfinite(g2[0])
+        assert torch.equal(g2[1][finite], w2[1][finite])
+
+
+def test_search_agrees_with_exact_float64(dev):
+    rng = np.random.default_rng(1)
+    bins = [3000, 2500, 2000, 1500]
+    starts, chr_of_bin = layout(bins)
+    data = torch.as_tensor(
+        1.0 + 0.03 * rng.standard_normal((sum(bins), 128)), device=dev
+    )
+    got_i, got_d = knn_cuda.knn_search_cuda(
+        data.float(), chr_of_bin, starts, bins, 300
+    )
+    want_i, want_d = tknn.knn_search_exact(data, chr_of_bin, starts, bins, 300)
+    agree = np.array([
+        len(np.intersect1d(a, b))
+        for a, b in zip(got_i.cpu().numpy(), want_i.cpu().numpy())
+    ]) / 300
+    # The bar of dev/tpu_vs_oracle.py: mean 99.9 %, min 299 of 300.
+    assert agree.mean() >= 0.999 and agree.min() >= 299 / 300
+    np.testing.assert_allclose(
+        np.sort(got_d.cpu().numpy(), axis=1),
+        np.sort(want_d.cpu().numpy(), axis=1), rtol=1e-4,
+    )
+
+
+def test_wrapper_rejects_what_the_kernels_do_not_take(dev):
+    *args, n = _integer_inputs(dev, n=3000, r=100)
+    bad = list(args)
+    bad[0] = bad[0].double()
+    with pytest.raises(TypeError):
+        knn_cuda.bucket_scan(*bad, n, 1e30)
+    with pytest.raises(ValueError):
+        knn_cuda.bucket_scan(*args, n, 1e30, depth=knn_cuda.DEPTH + 1)
+    vals, idx, drop = knn_cuda.bucket_scan(*args, n, 1e30)
+    with pytest.raises(ValueError):
+        knn_cuda.extract_topk(vals, idx, drop, vals.shape[1] + 1)

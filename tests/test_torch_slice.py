@@ -1,0 +1,166 @@
+"""The newref -> predict slice of the PyTorch port against wisecondorx_tpu,
+both driven through their CLIs on the CPU (float64) from one synthetic
+cohort, with the reference .npz exchanged in both directions:
+
+* the two references: same members; masks and layouts equal; PCA,
+  distances, null ratios and wcx_* caches to rtol 1e-9; indexes equal
+  (a difference is allowed only where the k boundary is tied);
+* predict --bed on one sample, with a JAX-built reference driving both
+  predicts and a port-built reference driving both: segments and
+  aberrations byte-equal, bins and statistics to rtol 1e-9.
+
+One known difference can break the byte equality, and the cohort seed
+avoids it: predict recentres log2 ratios by their median m_lr and blanks
+bins whose recentred ratio is exactly 0.  The port (like the reference
+tool) takes both log2s with bit-equal functions, so the median bin of an
+odd count recentres to exactly 0; the JAX package takes m_lr with XLA's
+log2, which differs from numpy's by an ulp for about a third of inputs,
+and then keeps that bin.  Of 17 seeds tried, one (5) hit it.
+test_torch_pca_normalize.py pins both halves of this down on its own.
+"""
+
+import os
+
+import numpy as np
+import pytest
+
+from synthetic import CohortSim
+from torch_parity import CPU
+from wisecondorx_tpu.cli import main as jax_cli
+from wisecondorx_tpu.io import npz as io_npz
+from wisecondorx_tpu_torch.cli import main as torch_cli
+
+REFSIZE = "40"
+
+
+@pytest.fixture(scope="module")
+def run(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("slice")
+    sim = CohortSim(binsize=1e5, genome_scale=0.02, seed=6)
+    samples, _ = sim.cohort(16, 14)
+    infiles = []
+    for i, s in enumerate(samples):
+        path = tmp / f"control_{i}.npz"
+        io_npz.save_sample_npz(path, 100000, s, {"mapped": 1})
+        infiles.append(str(path))
+    case = str(tmp / "case.npz")
+    io_npz.save_sample_npz(
+        case, 100000, sim.sample("F", cnvs=[(11, 2, 30, 3.0)]), {"mapped": 1}
+    )
+    refs = {"jax": str(tmp / "jax_ref.npz"), "torch": str(tmp / "torch_ref.npz")}
+    jax_cli(["newref", *infiles, refs["jax"], "--refsize", REFSIZE])
+    torch_cli(["newref", *infiles, refs["torch"], "--refsize", REFSIZE,
+               "--device", "cpu"])
+    out = {}
+    for ref_name, ref in refs.items():
+        for cli_name, cli, extra in (("jax", jax_cli, []),
+                                     ("torch", torch_cli, ["--device", "cpu"])):
+            outid = str(tmp / f"{cli_name}_on_{ref_name}")
+            cli(["predict", case, ref, outid, "--bed", "--minrefbins", "10",
+                 *extra])
+            out[cli_name, ref_name] = outid
+    return tmp, refs, out, case
+
+
+def test_references_match(run):
+    _, refs, _, _ = run
+    j = np.load(refs["jax"], allow_pickle=True)
+    t = np.load(refs["torch"], allow_pickle=True)
+    assert set(j.keys()) == set(t.keys())
+    for key in j.keys():
+        a, b = np.asarray(j[key]), np.asarray(t[key])
+        if key.startswith("indexes"):
+            dist = np.asarray(j[key.replace("indexes", "distances")])
+            for r in np.nonzero((a != b).any(axis=1))[0]:
+                kth = np.sort(dist[r])[-1]
+                assert np.isclose(dist[r], kth, rtol=1e-9).sum() > 1, (key, r)
+        elif a.dtype.kind == "f":
+            np.testing.assert_allclose(b, a, rtol=1e-9, atol=1e-300,
+                                       err_msg=key)
+        else:
+            np.testing.assert_array_equal(b, a, err_msg=key)
+
+
+def _rows(path):
+    return [line.rstrip("\n").split("\t") for line in open(path)]
+
+
+def _assert_close_tables(got_path, want_path):
+    got, want = _rows(got_path), _rows(want_path)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert len(g) == len(w)
+        for x, y in zip(g, w):
+            try:
+                fx, fy = float(x), float(y)
+            except ValueError:
+                assert x == y
+                continue
+            assert fx == pytest.approx(fy, rel=1e-9, abs=1e-12, nan_ok=True), (g, w)
+
+
+@pytest.mark.parametrize("ref_name", ["jax", "torch"])
+def test_predict_outputs_match(run, ref_name):
+    """A JAX-built reference drives the port's predict and a port-built
+    reference drives the JAX predict; each is held to the other package's
+    predict on the same reference."""
+    _, _, out, _ = run
+    want, got = out["jax", ref_name], out["torch", ref_name]
+    for suffix in ("_segments.bed", "_aberrations.bed"):
+        assert open(got + suffix).read() == open(want + suffix).read(), suffix
+    for suffix in ("_bins.bed", "_statistics.txt"):
+        _assert_close_tables(got + suffix, want + suffix)
+    gains = [r for r in _rows(got + "_aberrations.bed")[1:] if r[-1] == "gain"]
+    assert any(r[0] == "11" for r in gains)
+
+
+def test_load_reference_takes_in_memory_passes(run):
+    """``load_reference`` takes the (passes, meta) pair build_reference
+    returns as well as a path; both give the same predict."""
+    from wisecondorx_tpu_torch.models.predictor import PredictConfig, predict_bins
+    from wisecondorx_tpu_torch.models.ref_loader import load_reference
+
+    _, refs, _, case = run
+    sample, binsize, _ = io_npz.load_sample_npz(case)
+    cfg = PredictConfig(minrefbins=10)
+    by_path = predict_bins(dict(sample), binsize,
+                           load_reference(refs["jax"], CPU), cfg)
+    in_memory = predict_bins(
+        dict(sample), binsize,
+        load_reference(io_npz.load_reference_npz(refs["jax"]), CPU), cfg,
+    )
+    for a, b in zip(by_path.results_r + by_path.results_z,
+                    in_memory.results_r + in_memory.results_z):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_gender_subcommand(run, capsys):
+    tmp, refs, _, case = run
+    jax_cli(["gender", case, refs["torch"]])
+    want = capsys.readouterr().out
+    torch_cli(["gender", case, refs["jax"]])
+    assert capsys.readouterr().out == want == "female\n"
+
+
+@pytest.mark.parametrize("argv", [
+    ["predict", "a.npz", "r.npz", "out", "--bed", "--plot", "--device", "cpu"],
+    ["newref", "a.npz", "b.npz", "r.npz", "--checkpoint-dir", "ck",
+     "--device", "cpu"],
+    ["convert", "in.bam", "out.npz"],
+    ["predict-batch", "r.npz", "outdir", "--infiles", "a.npz"],
+])
+def test_cli_refuses_what_is_not_ported(argv, caplog):
+    with pytest.raises(SystemExit) as exc:
+        torch_cli(argv)
+    assert exc.value.code != 0
+    assert "wisecondorx-tpu" in caplog.text
+
+
+def test_cuda_device_is_never_replaced_by_the_cpu(run, monkeypatch):
+    import torch
+
+    tmp, refs, _, case = run
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        torch_cli(["predict", case, refs["jax"], str(tmp / "x"), "--bed"])
+    assert not os.path.exists(str(tmp / "x_bins.bed"))

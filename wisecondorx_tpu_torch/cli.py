@@ -1,0 +1,231 @@
+"""Command-line interface of the PyTorch port: ``wisecondorx-tpu-torch``.
+
+``newref``, ``predict --bed`` and ``gender`` take the JAX CLI's flags and
+read and write the same ``.npz`` schemas, plus ``--device {cuda,cpu}``
+(default ``cuda``, which fails when no CUDA device is present).  What the
+port does not carry yet -- ``convert``, ``predict-batch``, ``--plot``,
+``--plotyfrac`` and ``--checkpoint-dir`` -- exits non-zero with a message
+naming the JAX CLI (``wisecondorx-tpu``).
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import sys
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+
+from wisecondorx_tpu.io.npz import load_sample_npz
+from wisecondorx_tpu_torch.utils.log import setup_logging, stage_timer
+
+
+def _not_ported(what: str):
+    logging.critical(
+        "%s is not carried by the PyTorch port yet; use the JAX CLI "
+        "(wisecondorx-tpu) for it", what,
+    )
+    sys.exit(2)
+
+
+def tool_newref(args):
+    from wisecondorx_tpu.io.npz import (
+        _savez_fast,
+        flatten_reference,
+        verify_reference_npz,
+    )
+    from wisecondorx_tpu.ref_qc import qc_reference_arrays
+    from wisecondorx_tpu_torch.device import resolve_device
+    from wisecondorx_tpu_torch.models.reference import (
+        NewrefConfig,
+        NewrefError,
+        build_reference,
+    )
+
+    if args.plotyfrac is not None:
+        _not_ported("newref --plotyfrac")
+    if args.checkpoint_dir is not None:
+        _not_ported("newref --checkpoint-dir")
+    device = resolve_device(args.device)
+    logging.info("Creating new reference on %s", device)
+    with stage_timer("newref.load_inputs"):
+        def load_one(infile):
+            sample, binsize, _ = load_sample_npz(infile)
+            return sample, binsize
+
+        with ThreadPoolExecutor(max_workers=8) as pool:
+            samples = list(pool.map(load_one, args.infiles))
+    cfg = NewrefConfig(binsize=int(args.binsize), refsize=args.refsize,
+                       nipt=args.nipt, yfrac=args.yfrac, seed=args.seed)
+    try:
+        passes, meta = build_reference(samples, cfg, device)
+    except NewrefError as e:
+        logging.critical(str(e))
+        sys.exit(1)
+    outfile = args.outfile if args.outfile.endswith(".npz") else args.outfile + ".npz"
+    final = flatten_reference(passes, is_nipt=meta["is_nipt"],
+                              trained_cutoff=meta["trained_cutoff"])
+    with stage_timer("newref.write"):
+        _savez_fast(outfile, final)
+        logging.info("Reference written to %s", outfile)
+    with stage_timer("newref.verify"):
+        verify_reference_npz(outfile, expected_keys=final.keys())
+    with stage_timer("newref.qc"):
+        qc_reference_arrays(final, label=outfile)
+    logging.info("Finished creating reference")
+
+
+def output_gender(args):
+    from wisecondorx_tpu_torch.ops.gmm import predict_gender
+
+    sample, _, _ = load_sample_npz(args.infile)
+    ref = np.load(args.reference, encoding="latin1", allow_pickle=True)
+    gender = predict_gender(sample, float(ref["trained_cutoff"]))
+    print("male" if gender == "M" else "female")
+
+
+def tool_test(args):
+    from wisecondorx_tpu.output.tables import generate_output_tables
+    from wisecondorx_tpu_torch.device import resolve_device
+    from wisecondorx_tpu_torch.models.predictor import (
+        PredictConfig,
+        PredictError,
+        predict,
+    )
+    from wisecondorx_tpu_torch.models.ref_loader import load_reference
+
+    if args.plot:
+        _not_ported("predict --plot")
+    if not args.bed:
+        logging.critical(
+            "No output format selected. Select --bed (the port does not "
+            "write plots yet)"
+        )
+        sys.exit(1)
+    cfg = PredictConfig(
+        minrefbins=args.minrefbins, maskrepeats=args.maskrepeats,
+        alpha=args.alpha, zscore=args.zscore, beta=args.beta,
+        blacklist=args.blacklist, gender=args.gender, seed=args.seed,
+    )
+    try:
+        cfg.validate()
+    except PredictError as e:
+        logging.critical(str(e))
+        sys.exit(1)
+    device = resolve_device(args.device)
+    logging.info("Starting CNA prediction on %s", device)
+    with stage_timer("predict.load_sample"):
+        sample, sample_binsize, _ = load_sample_npz(args.infile)
+    with stage_timer("predict.load_reference"):
+        ref = load_reference(args.reference, device, cfg.maskrepeats)
+    try:
+        bins, segments = predict(sample, sample_binsize, ref, cfg)
+    except PredictError as e:
+        logging.critical(str(e))
+        sys.exit(1)
+    with stage_timer("predict.write"):
+        generate_output_tables(args.outid, bins, segments, cfg,
+                               regions=args.regions)
+    logging.info("Finished prediction")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(description="WisecondorX-TPU, PyTorch port")
+    parser.add_argument(
+        "--loglevel", type=str, default="INFO",
+        choices=["info", "warning", "debug", "error", "critical"],
+    )
+    sub = parser.add_subparsers()
+    fmt = argparse.ArgumentDefaultsHelpFormatter
+
+    def device_flag(p):
+        p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                       help="Device to run on; cuda fails when none is present")
+
+    p = sub.add_parser("convert", description="Not ported: use wisecondorx-tpu convert")
+    p.add_argument("args", nargs=argparse.REMAINDER)
+    p.set_defaults(func=lambda args: _not_ported("convert"))
+
+    p = sub.add_parser(
+        "newref", formatter_class=fmt,
+        description="Create a new reference using healthy reference samples",
+    )
+    p.add_argument("infiles", type=str, nargs="+")
+    p.add_argument("outfile", type=str)
+    p.add_argument("--nipt", action="store_true")
+    p.add_argument("--yfrac", type=float, default=None)
+    p.add_argument("--plotyfrac", type=str, default=None)
+    p.add_argument("--refsize", type=int, default=300)
+    p.add_argument("--binsize", type=int, default=int(1e5))
+    p.add_argument("--cpus", type=int, default=1,
+                   help="Kept for CLI compatibility; ignored")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--checkpoint-dir", type=str, default=None)
+    device_flag(p)
+    p.set_defaults(func=tool_newref)
+
+    p = sub.add_parser(
+        "gender", formatter_class=fmt,
+        description="Returns the gender of a .npz resulting from convert",
+    )
+    p.add_argument("infile", type=str)
+    p.add_argument("reference", type=str)
+    p.set_defaults(func=output_gender)
+
+    p = sub.add_parser("predict", formatter_class=fmt,
+                       description="Find copy number aberrations")
+    p.add_argument("infile", type=str)
+    p.add_argument("reference", type=str)
+    p.add_argument("outid", type=str)
+    p.add_argument("--minrefbins", type=int, default=150)
+    p.add_argument("--maskrepeats", type=int, default=5)
+    p.add_argument("--alpha", type=float, default=1e-4)
+    p.add_argument("--zscore", type=float, default=5)
+    p.add_argument("--beta", type=float, default=None)
+    p.add_argument("--blacklist", type=str, default=None)
+    p.add_argument("--gender", type=str, choices=["F", "M"])
+    p.add_argument("--ylim", type=str, default="def")
+    p.add_argument("--bed", action="store_true")
+    p.add_argument("--plot", action="store_true")
+    p.add_argument("--cairo", action="store_true")
+    p.add_argument("--add-plot-title", action="store_true")
+    p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--regions", type=str, default=None)
+    device_flag(p)
+    p.set_defaults(func=tool_test)
+
+    p = sub.add_parser("predict-batch",
+                       description="Not ported: use wisecondorx-tpu predict-batch")
+    p.add_argument("args", nargs=argparse.REMAINDER)
+    p.set_defaults(func=lambda args: _not_ported("predict-batch"))
+    return parser
+
+
+def main(argv=None):
+    parser = build_parser()
+    args = parser.parse_args(argv if argv is not None else sys.argv[1:])
+    setup_logging(args.loglevel)
+    if not hasattr(args, "func"):
+        parser.print_help()
+        sys.exit(1)
+    import pickle
+    import zipfile
+
+    from wisecondorx_tpu.errors import UserInputError
+
+    try:
+        args.func(args)
+    except UserInputError as e:
+        logging.critical(str(e))
+        sys.exit(1)
+    except FileNotFoundError as e:
+        logging.critical("Input file not found: %s", e.filename or e)
+        sys.exit(1)
+    except (zipfile.BadZipFile, pickle.UnpicklingError) as e:
+        logging.critical("Not a valid .npz file: %s", e)
+        sys.exit(1)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,273 @@
+"""Reference construction (the ``newref`` stage) on a device.
+
+Counterpart of wisecondorx_tpu/models/reference.py: rescale, sex model,
+gender correction, usability mask, then per pass (A / F / M) depth
+normalization, PCA residual, PCA-distance bin filter, KNN neighbour search
+and null ratios, and finally the predict-side ``wcx_*`` caches.  The
+cohort is placed on the device once; every pass works on a row prefix and
+column subset of it.  Passes run one after the other.
+
+Quirk kept (SURVEY.md 2.9): the PCA-distance filter mutates the *shared*
+total mask through a slice view, so bins the A pass drops are absent from
+the later F/M passes too.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+
+import numpy as np
+import torch
+
+from wisecondorx_tpu.errors import UserInputError
+from wisecondorx_tpu.genome import LAST_CHR, MaskedLayout, samples_to_matrix
+from wisecondorx_tpu.io.npz import gender_correct, scale_sample
+from wisecondorx_tpu.ops import mask as mask_ops
+from wisecondorx_tpu_torch.device import work_dtype
+from wisecondorx_tpu_torch.ops import knn as knn_ops
+from wisecondorx_tpu_torch.ops import normalize as norm_ops
+from wisecondorx_tpu_torch.ops import pca as pca_ops
+from wisecondorx_tpu_torch.ops.common import median
+from wisecondorx_tpu_torch.ops.gmm import train_gender_model
+from wisecondorx_tpu_torch.utils.log import stage_timer
+
+
+class NewrefError(RuntimeError, UserInputError):
+    """Raised when a reference cannot be built (e.g. too few samples)."""
+
+
+@dataclasses.dataclass
+class NewrefConfig:
+    binsize: int = int(1e5)
+    refsize: int = 300
+    nipt: bool = False
+    yfrac: float | None = None
+    #: Seed of the null-ratio sample draw (the reference is unseeded).
+    seed: int | None = 0
+    pca_components: int = 5
+
+
+def build_reference(samples_with_binsize: list[tuple[dict, int]],
+                    config: NewrefConfig, device: torch.device,
+                    _null_chooser=None):
+    """Build a normalization reference from negative-control samples.
+
+    ``samples_with_binsize``: (sample dict, binsize) pairs as loaded from
+    convert npz files.  ``_null_chooser(gender, n_samples)`` overrides the
+    seeded null-ratio sample draw (parity tests).
+
+    Returns (passes dict of numpy arrays in the npz schema, meta dict).
+    """
+    cfg = config
+    if _null_chooser is None:
+        # Per-pass generator from (seed, pass): pass X's draw does not
+        # depend on which passes ran before it.
+        def _null_chooser(gender, n):
+            rng = (
+                np.random.default_rng()
+                if cfg.seed is None
+                else np.random.default_rng([cfg.seed, ord(gender)])
+            )
+            return knn_ops.choose_null_samples(n, rng)
+
+    matrix, layout, genders, trained_cutoff, nipt = cohort_matrix(
+        samples_with_binsize, cfg
+    )
+    genders_arr = np.array(genders, dtype=object)
+    with stage_timer("newref.mask"):
+        subsets = [None]
+        if genders.count("F") > 4:
+            subsets.append(genders_arr == "F")
+        if genders.count("M") > 4 and not nipt:
+            subsets.append(genders_arr == "M")
+        masks = mask_ops.get_masks(matrix, subsets)
+        total_mask = np.array(masks[0])  # mutated by the PCA-distance filter
+        for m in masks[1:]:
+            total_mask &= np.asarray(m)
+
+    plan = [("A", np.ones(len(genders), dtype=bool))]
+    if genders.count("F") > 4:
+        plan.append(("F", genders_arr == "F"))
+    else:
+        logging.warning(
+            "Provide at least 5 female samples to enable normalization of "
+            "female gonosomes."
+        )
+    if not nipt:
+        if genders.count("M") > 4:
+            plan.append(("M", genders_arr == "M"))
+        else:
+            logging.warning(
+                "Provide at least 5 male samples to enable normalization of "
+                "male gonosomes."
+            )
+
+    with stage_timer("newref.cohort_upload"):
+        cohort = torch.as_tensor(matrix, dtype=work_dtype(device),
+                                 device=device)
+    passes = {}
+    for gender, cols in plan:
+        with stage_timer(f"newref.pass_{gender}"):
+            passes[gender] = _build_pass(
+                gender, cohort, cols, layout, total_mask, cfg, _null_chooser
+            )
+        with stage_timer(f"newref.pass_{gender}.predict_cache"):
+            passes[gender].update(
+                _predict_cache(gender, passes[gender]["distances"])
+            )
+
+    # Bit-packed distance < cutoff masks at the default --maskrepeats 5.
+    cutoffs = passes["A"]["wcx_cutoffs"]
+    if len(cutoffs) >= 5:
+        c5 = float(cutoffs[4])
+        for p in passes.values():
+            ok = np.asarray(p["distances"], np.float64) < c5
+            p["wcx_distok"] = np.packbits(ok, axis=1)
+
+    meta = {
+        "is_nipt": nipt,
+        "trained_cutoff": trained_cutoff,
+        "has_female": "F" in passes,
+        "has_male": "M" in passes,
+    }
+    return passes, meta
+
+
+def cohort_matrix(samples_with_binsize: list[tuple[dict, int]],
+                  config: NewrefConfig):
+    """newref's cohort before the mask: samples rescaled to the reference
+    bin size, sexed by the gender model, gender-corrected (unless NIPT)
+    and stacked.
+
+    Returns (matrix [bins, samples] float64, GenomeLayout, genders,
+    trained_cutoff, nipt) where ``nipt`` is ``config.nipt`` after the
+    too-few-females check."""
+    cfg = config
+    if cfg.yfrac is not None and not (0 <= cfg.yfrac <= 1):
+        raise NewrefError(
+            "Parameter --yfrac should be a positive number lower than or "
+            "equal to 1"
+        )
+
+    with stage_timer("newref.scale"):
+        samples = [
+            scale_sample(s, bs, cfg.binsize) for s, bs in samples_with_binsize
+        ]
+    with stage_timer("newref.gender_model"):
+        genders, trained_cutoff, _ = train_gender_model(
+            samples, yfrac_override=cfg.yfrac
+        )
+
+    nipt = cfg.nipt
+    if genders.count("F") < 5 and nipt:
+        logging.warning(
+            "A NIPT reference should have at least 5 female feti samples. "
+            "Removing --nipt flag."
+        )
+        nipt = False
+    if not nipt:
+        samples = [gender_correct(s, g) for s, g in zip(samples, genders)]
+    if len(genders) <= 9:
+        raise NewrefError(
+            "Provide at least 10 samples to enable the generation of a "
+            "reference."
+        )
+    with stage_timer("newref.matrix"):
+        matrix, layout = samples_to_matrix(samples)
+    return matrix, layout, genders, trained_cutoff, nipt
+
+
+def _build_pass(gender, cohort, cols, layout, total_mask, cfg, null_chooser):
+    """One reference pass.  ``total_mask`` is mutated in place by the
+    PCA-distance filter through the ``pass_mask`` view."""
+    tl = layout.truncated(LAST_CHR[gender])
+    pass_mask = total_mask[: tl.total_bins]  # view: the aliasing is intended
+    sub = cohort[: tl.total_bins]
+    if not np.all(cols):
+        sub = sub[:, torch.as_tensor(np.nonzero(cols)[0], device=cohort.device)]
+
+    with stage_timer(f"newref.pass_{gender}.pca"):
+        corrected, components, mean = _normalize_and_pca(sub, pass_mask, cfg)
+        # PCA-distance bin filter: drop bins far from the median profile.
+        dist_to_med = _pca_distance(corrected).cpu().numpy().astype(np.float64)
+        mad = np.median(np.abs(dist_to_med - np.median(dist_to_med)))
+        cutoff = max(np.median(dist_to_med) + 10 * mad, 5.0)
+        bad_bins = dist_to_med > cutoff
+        if np.any(bad_bins):
+            logging.info(
+                "Removing %d anomalous bins based on PCA distance "
+                "(cutoff=%.4f)", int(bad_bins.sum()), cutoff,
+            )
+            masked_indices = np.where(pass_mask)[0]
+            pass_mask[masked_indices[bad_bins]] = False  # mutates total_mask
+            corrected, components, mean = _normalize_and_pca(
+                sub, pass_mask, cfg
+            )
+
+    ml = MaskedLayout(tl, pass_mask.copy())
+    n_masked = ml.n_masked
+    # Gonosomal passes search only their chrX/chrY rows; autosome rows get
+    # the reference's 0-index / 1.0-distance placeholders.
+    r0 = 0 if gender == "A" else int(ml.masked_chr_starts[22])
+    chosen = np.asarray(null_chooser(gender, corrected.shape[1]))
+
+    with stage_timer(f"newref.pass_{gender}.knn"):
+        stats: dict = {}
+        idx, dist = knn_ops.knn_search(
+            corrected, ml.chr_of_masked_bin, ml.masked_chr_starts,
+            ml.masked_bins_per_chr, ref_size=cfg.refsize,
+            row_range=None if gender == "A" else (r0, n_masked), stats=stats,
+        )
+        if stats.get("flagged_rows"):
+            logging.info(
+                "KNN pass %s: %d of %d rows rerun exactly", gender,
+                stats["flagged_rows"], stats["n_rows"],
+            )
+        indexes = np.zeros((n_masked, cfg.refsize), dtype=np.int32)
+        indexes[r0:] = idx.cpu().numpy()
+        np_dtype = np.float32 if dist.dtype == torch.float32 else np.float64
+        distances = np.ones((n_masked, cfg.refsize), dtype=np_dtype)
+        distances[r0:] = dist.cpu().numpy()
+
+    with stage_timer(f"newref.pass_{gender}.nulls"):
+        null_ratios = knn_ops.compute_null_ratios(
+            corrected, idx, chosen, placeholder_rows=r0
+        ).cpu().numpy()
+
+    return {
+        "binsize": cfg.binsize,
+        "mask": ml.mask,
+        "bins_per_chr": np.asarray(tl.bins_per_chr),
+        "masked_bins_per_chr": ml.masked_bins_per_chr,
+        "masked_bins_per_chr_cum": ml.masked_bins_per_chr_cum,
+        "pca_components": components,
+        "pca_mean": mean,
+        "indexes": indexes,
+        "distances": distances,
+        "null_ratios": null_ratios,
+    }
+
+
+def _predict_cache(gender: str, distances: np.ndarray) -> dict:
+    """Predict-side caches stored as extra ``wcx_*`` npz members: the
+    per-bin weights, and for the A pass the optimal-cutoff schedule for
+    maskrepeats 1..10.  Pure float64 functions of the distance table."""
+    out = {"wcx_weights": norm_ops.get_weights(distances)}
+    if gender == "A":
+        out["wcx_cutoffs"] = norm_ops.optimal_cutoff_schedule(distances)
+    return out
+
+
+def _normalize_and_pca(sub, pass_mask, cfg):
+    """Depth-normalize over the pass's chromosome range (per-sample totals
+    over chromosomes 1..last_chr), keep the masked bins, PCA-correct."""
+    keep = torch.as_tensor(np.nonzero(pass_mask)[0], device=sub.device)
+    masked = sub[keep] / sub.sum(dim=0)
+    return pca_ops.train_pca(masked, cfg.pca_components)
+
+
+def _pca_distance(corrected: torch.Tensor) -> torch.Tensor:
+    """Squared distance of every bin profile to the median profile (the
+    median averages the two middles, as numpy's does)."""
+    return ((corrected - median(corrected, dim=0)) ** 2).sum(dim=1)
