@@ -10,12 +10,28 @@ Phases, each printing one JSON line on stdout (logs go to stderr):
 2. build   -- compiles the CUDA kernels from wisecondorx_tpu_torch/csrc;
 3. cohort  -- a synthetic cohort at 50 kb bins over the whole genome
    (tests/synthetic.py CohortSim, genome_scale 1.0, ~62k bins), 100 female +
-   100 male controls, seed 0, written as convert-stage sample npz files;
+   100 male controls, seed 0, written as convert-stage sample npz files,
+   then the cases and the plate below from the same simulator;
 4. newref  -- ``wisecondorx_tpu_torch.cli newref --device cuda``;
-5. predict -- ``predict --bed`` on a trisomy-21 sample (must call a chr21
-   gain, and the bins table must cover every bin) and on a euploid sample
-   (must call no whole-chromosome aberration);
-6. kernels -- at the A-pass shape of the reference newref wrote (its mask
+5. predict -- ``predict --bed`` (streamed reference loader, device CBS
+   permutation stream) on a trisomy-21 sample (must call a chr21 gain, and
+   the bins table must cover every bin, and no other whole chromosome) and
+   on a euploid male (must call no whole-chromosome aberration); then
+   ``cbs_rounds``: the CBS rounds of both predicts, which must all be
+   device-stream rounds;
+6. predict_batch -- ``predict-batch --bed`` on a plate of 24 samples
+   (trisomies 21, 18 and 13, a 10 Mb deletion on chr5, the euploid male,
+   19 euploid females) plus one corrupt npz: the exit code must be 3, every
+   planted event called, no euploid sample called whole-chromosome, any
+   other whole-chromosome call of an aneuploid sample made again by its
+   single predict and by the reference path (CPU float64 normalization,
+   host permutation stream), and the trisomy-21 sample's segments and
+   calls equal to its single predict's;
+7. cbs_stream -- on the trisomy-21 sample's CBS jobs: one round's Threefry
+   keys equal on CUDA and the CPU, the first-level decisions of the device
+   stream equal on both, and the sample's CBS time with the device and
+   the host permutation stream on the card;
+8. kernels -- at the A-pass shape of the reference newref wrote (its mask
    and layout; rows = masked bins, 200 samples): K1 and K2 against their
    plain PyTorch versions on integer-valued inputs, where every distance is
    exact (tolerance 0), with times; and the stored A-pass neighbours
@@ -23,7 +39,8 @@ Phases, each printing one JSON line on stdout (logs go to stderr):
    (neighbour-set agreement, mean >= 99.9 %, min >= 299 of 300).
 
 The kernels' launch counters are set to 0 just before newref and read just
-after predict: both kernels must have run on that path.  Then one JSON line
+after predict: both kernels must have run on that path (predict-batch runs
+no KNN kernel).  Then one JSON line
 lists the kernels, and the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failure raises, and the script exits non-zero without that line.  It
@@ -54,6 +71,9 @@ MEAN_AGREE, MIN_AGREE = 0.999, 299 / 300
 #: the ``d >= sentinel`` branch (on the real data the sentinel is far above
 #: every distance).
 INT_SENTINEL_PER_SAMPLE = 10.5
+#: The plate's 10 Mb deletion: chr5 bins [1000, 1200) at 50 kb.
+DELETION = (1000, 1200)
+PLATE_EUPLOID = 19
 
 
 def emit(phase, **fields):
@@ -128,14 +148,45 @@ def make_cohort():
         path = os.path.join(WORK, f"control_{i:03d}.npz")
         save_sample(path, s)
         files.append(path)
-    n21 = len(sim.bias[20])
     t21 = os.path.join(WORK, "case_t21.npz")
-    save_sample(t21, sim.sample("F", cnvs=[(21, 0, n21, 3.0)]))
+    save_sample(t21, sim.sample("F", cnvs=[_trisomy(sim, 21)]))
     euploid = os.path.join(WORK, "case_euploid.npz")
     save_sample(euploid, sim.sample("M"))
+    plate = make_plate(sim, t21, euploid)
     emit("cohort", seconds=round(time.perf_counter() - t0, 3),
-         samples=len(files), bins=int(sim.bins.sum()), binsize=BINSIZE)
-    return samples, files, t21, euploid
+         samples=len(files), plate=len(plate), bins=int(sim.bins.sum()),
+         binsize=BINSIZE)
+    return samples, files, t21, euploid, plate
+
+
+def _trisomy(sim, chrom):
+    return (chrom, 0, len(sim.bias[chrom - 1]), 3.0)
+
+
+def make_plate(sim, t21, euploid):
+    """The predict-batch plate: the trisomy-21 case and the euploid male
+    case from above, trisomies 18 and 13, a 10 Mb deletion and 19 euploid
+    females (24 samples), then one corrupt ``.npz``.  Returns
+    [(path, expected event or None)]; an event is (chromosome, start bin,
+    end bin, "gain" or "loss")."""
+    plate = [(t21, ("21", 0, len(sim.bias[20]), "gain")),
+             (euploid, None)]
+    for chrom in (18, 13):
+        path = os.path.join(WORK, f"plate_t{chrom}.npz")
+        save_sample(path, sim.sample("F", cnvs=[_trisomy(sim, chrom)]))
+        plate.append((path, (str(chrom), 0, len(sim.bias[chrom - 1]), "gain")))
+    path = os.path.join(WORK, "plate_del5.npz")
+    save_sample(path, sim.sample("F", cnvs=[(5,) + DELETION + (1.0,)]))
+    plate.append((path, ("5",) + DELETION + ("loss",)))
+    for i in range(PLATE_EUPLOID):
+        path = os.path.join(WORK, f"plate_euploid_{i:02d}.npz")
+        save_sample(path, sim.sample("F"))
+        plate.append((path, None))
+    corrupt = os.path.join(WORK, "plate_corrupt.npz")
+    with open(corrupt, "wb") as f:
+        f.write(b"not a zip archive")
+    plate.append((corrupt, "unreadable"))
+    return plate
 
 
 def phase_newref(files):
@@ -154,8 +205,6 @@ def phase_newref(files):
 
 
 def phase_predict(ref, case, tag, want_gain_chr):
-    import numpy as np
-
     from wisecondorx_tpu_torch import cli
     from wisecondorx_tpu_torch.utils.log import reset_stage_times, stage_times
 
@@ -164,6 +213,23 @@ def phase_predict(ref, case, tag, want_gain_chr):
     t0 = time.perf_counter()
     cli.main(["predict", case, ref, outid, "--bed", "--device", "cuda"])
     wall = time.perf_counter() - t0
+    gender, rows, whole = read_calls(outid, ref)
+    emit("predict", sample=tag, gender=gender, seconds=round(wall, 3),
+         cbs_seconds=round(stage_times()["predict.cbs"], 3),
+         aberrations=[f"{r[0]}:{r[1]}-{r[2]}:{r[-1]}" for r in rows],
+         whole_chromosome=whole,
+         stages={k: round(v, 3) for k, v in stage_times().items()})
+    planted = set() if want_gain_chr is None else {f"{want_gain_chr}:gain"}
+    if not planted <= set(whole):
+        raise AssertionError(f"{tag}: no chr{want_gain_chr} gain in {rows}")
+    if set(whole) - planted:
+        raise AssertionError(f"{tag}: whole-chromosome calls {whole}")
+
+
+def read_calls(outid, ref):
+    """(gender, aberration rows, whole-chromosome calls "chr:type") of a
+    predict output; checks that the bins table covers every bin."""
+    import numpy as np
 
     n_rows = len(open(outid + "_bins.bed").read().splitlines()) - 1
     with open(outid + "_aberrations.bed") as f:
@@ -173,7 +239,7 @@ def phase_predict(ref, case, tag, want_gain_chr):
     bins_per_chr = np.load(ref)[f"bins_per_chr.{gender}"]
     if n_rows != int(np.sum(bins_per_chr)):
         raise AssertionError(
-            f"{tag}: bins.bed has {n_rows} rows, want {np.sum(bins_per_chr)}"
+            f"{outid}: bins.bed has {n_rows} rows, want {np.sum(bins_per_chr)}"
         )
     names = {str(c + 1): c for c in range(22)} | {"X": 22, "Y": 23}
     whole = []
@@ -181,15 +247,250 @@ def phase_predict(ref, case, tag, want_gain_chr):
         span = (int(r[2]) - int(r[1]) + 1) / BINSIZE
         if span >= 0.9 * bins_per_chr[names[r[0]]]:
             whole.append(f"{r[0]}:{r[-1]}")
-    emit("predict", sample=tag, gender=gender, seconds=round(wall, 3),
-         aberrations=[f"{r[0]}:{r[1]}-{r[2]}:{r[-1]}" for r in rows],
-         whole_chromosome=whole,
-         stages={k: round(v, 3) for k, v in stage_times().items()})
-    if want_gain_chr is None:
+    return gender, rows, whole
+
+
+def phase_predict_batch(ref, plate, t21_outid, device):
+    """``predict-batch`` of the plate: exit code 3 for the corrupt file,
+    BED files for the 24 others, every planted event called, no
+    whole-chromosome call on a euploid sample, every whole-chromosome call
+    on an aneuploid sample besides its planted event made again by the
+    reference path (:func:`_unplanted_calls`), and the trisomy-21 sample's
+    segments and calls equal to its single-sample predict's."""
+    from wisecondorx_tpu_torch import cli
+    from wisecondorx_tpu_torch.ops import cbs
+    from wisecondorx_tpu_torch.utils.log import reset_stage_times, stage_times
+
+    outdir = os.path.join(WORK, "plate_out")
+    reset_stage_times()
+    cbs.reset_round_counts()
+    t0 = time.perf_counter()
+    try:
+        cli.main(["predict-batch", ref, outdir, "--bed", "--device", "cuda",
+                  "--infiles", *(path for path, _ in plate)])
+    except SystemExit as e:
+        code = e.code
+    else:
+        code = 0
+    wall = time.perf_counter() - t0
+    rounds = dict(cbs.ROUNDS)
+    stages = {k: round(v, 3) for k, v in stage_times().items()}
+    if code != 3:
+        raise AssertionError(f"predict-batch exited {code}, want 3")
+    scored = [(p, ev) for p, ev in plate if ev != "unreadable"]
+    calls, problems, unplanted = {}, [], []
+    for path, event in scored:
+        outid = os.path.join(outdir, os.path.basename(path)[:-4])
+        for suffix in ("_bins.bed", "_segments.bed", "_aberrations.bed",
+                       "_statistics.txt"):
+            if not os.path.exists(outid + suffix):
+                problems.append(f"{outid}{suffix} missing")
+        gender, rows, whole = read_calls(outid, ref)
+        name = os.path.basename(outid)
         if whole:
-            raise AssertionError(f"{tag}: whole-chromosome calls {whole}")
-    elif f"{want_gain_chr}:gain" not in whole:
-        raise AssertionError(f"{tag}: no chr{want_gain_chr} gain in {rows}")
+            calls[name] = [gender] + whole
+        planted = set()
+        if event is not None:
+            chrom, lo, hi, kind = event
+            if not any(r[0] == chrom and r[-1] == kind
+                       and int(r[1]) < hi * BINSIZE and int(r[2]) > lo * BINSIZE
+                       for r in rows):
+                problems.append(f"{name}: planted {event} not called in {rows}")
+            planted = {f"{chrom}:{kind}"}
+        extra = sorted(c for c in whole if c not in planted)
+        if extra and event is None:
+            problems.append(f"{name}: whole-chromosome calls {extra} on a "
+                            "euploid sample")
+        elif extra:
+            records, found = _unplanted_calls(ref, path, name, extra, planted,
+                                              device)
+            unplanted.append(records)
+            problems += found
+    problems += _batch_vs_single(os.path.join(outdir, "case_t21"), t21_outid)
+    emit("predict_batch", samples=len(scored), exit_code=code,
+         seconds=round(wall, 3), seconds_per_sample=round(wall / len(scored), 4),
+         cbs_rounds=rounds, calls=calls, unplanted=unplanted, stages=stages)
+    if rounds["device"] < 1 or rounds["host"]:
+        raise AssertionError(f"predict-batch CBS rounds {rounds}: not the device stream")
+    if problems:
+        raise AssertionError("; ".join(problems))
+
+
+def _unplanted_calls(ref, path, name, extra, planted, device):
+    """A plate sample's whole-chromosome calls ``extra`` besides its
+    ``planted`` one, held against the port's reference path.  A single
+    ``predict`` on the card, and the CPU float64 normalization (the path
+    the tests hold equal to the JAX package's CPU run) segmented with the
+    host permutation stream (the JAX package's CPU stream, its arc
+    statistic on the card), must both make exactly the same calls;
+    otherwise the card's path made them and the plate fails.  Returns (a
+    record of both, problems)."""
+    import numpy as np
+    import torch
+
+    from wisecondorx_tpu_torch import cli
+    from wisecondorx_tpu_torch.models.predictor import (
+        PredictConfig,
+        predict_bins,
+        segment_bins,
+    )
+    from wisecondorx_tpu_torch.models.ref_loader import ReferenceLoader
+
+    single = os.path.join(WORK, f"single_{name}")
+    cli.main(["predict", path, ref, single, "--bed", "--device", "cuda"])
+    whole_single = read_calls(single, ref)[2]
+    cfg = PredictConfig()
+    sample = np.load(path, allow_pickle=True)["sample"].item()
+    with ReferenceLoader(ref, torch.device("cpu")) as loader:
+        bins = predict_bins(sample, BINSIZE, None, cfg, loader=loader)
+    chrom_names = [str(c + 1) for c in range(22)] + ["X", "Y"]
+    whole_ref, segments = [], []
+    for c, start, end, z, ratio in segment_bins(bins, cfg, device,
+                                                 _device_stream=False):
+        if (end - start < 0.9 * len(bins.results_r[c]) or z == "nan"
+                or abs(z) <= cfg.zscore):
+            continue
+        whole_ref.append(f"{chrom_names[c]}:{'gain' if z > 0 else 'loss'}")
+        segments.append([chrom_names[c], start, end, z, ratio])
+    record = {"sample": name, "batch": extra, "single": sorted(whole_single),
+              "reference_path": sorted(whole_ref), "reference_segments": segments}
+    problems = []
+    if set(whole_single) - planted != set(extra):
+        problems.append(f"{name}: batch calls {extra}, single predict {whole_single}")
+    if set(whole_ref) - planted != set(extra):
+        problems.append(f"{name}: batch calls {extra}, reference path {whole_ref}")
+    return record, problems
+
+
+def _batch_vs_single(batch_outid, single_outid):
+    """Differences between one sample's predict-batch and predict tables:
+    segments and aberrations must have the same rows, coordinates and
+    call types exactly and the same numbers to 1e-9 (the batched
+    normalization reduces over other shapes on the card)."""
+    problems = []
+    for suffix in ("_segments.bed", "_aberrations.bed"):
+        got, want = (open(o + suffix).read().splitlines()
+                     for o in (batch_outid, single_outid))
+        if len(got) != len(want):
+            problems.append(f"{suffix}: {len(got)} rows in batch, {len(want)} single")
+            continue
+        for g, w in zip(got, want):
+            g, w = g.split("\t"), w.split("\t")
+            num = [i for i, v in enumerate(w) if _is_number(v) and i > 2]
+            same_text = [x for i, x in enumerate(g) if i not in num] == [
+                x for i, x in enumerate(w) if i not in num]
+            close = all(_is_number(g[i]) and _close(float(g[i]), float(w[i]))
+                        for i in num)
+            if len(g) != len(w) or not same_text or not close:
+                problems.append(f"{suffix}: batch row {g} != single row {w}")
+    return problems
+
+
+def _close(a, b):
+    import math
+
+    return (math.isnan(a) and math.isnan(b)) or abs(a - b) <= 1e-9 * max(1.0, abs(b))
+
+
+def _is_number(v):
+    try:
+        float(v)
+    except ValueError:
+        return False
+    return True
+
+
+def phase_cbs_stream(ref, case, device):
+    """The device permutation stream on the trisomy-21 sample's CBS jobs
+    (its chromosomes at 50 kb): one round's Threefry keys on CUDA equal to
+    the same call on the CPU; the decisions of every first-level (bucket,
+    mode) group equal on CUDA and on the CPU; and the CBS time of the
+    sample with the device and with the host stream, both on the card.
+
+    The decision check runs at ``nperm`` 40 (alpha 0.025, so two
+    exceedances reject, as 1e-4 does at 10,000): the CPU side would
+    otherwise take many minutes on the exact-length buckets."""
+    import numpy as np
+    import torch
+
+    from wisecondorx_tpu_torch.models.predictor import PredictConfig, predict_bins
+    from wisecondorx_tpu_torch.models.ref_loader import ReferenceLoader
+    from wisecondorx_tpu_torch.ops import cbs
+
+    cpu = torch.device("cpu")
+    pcfg = PredictConfig()
+    sample = np.load(case, allow_pickle=True)["sample"].item()
+    with ReferenceLoader(ref, device) as loader:
+        bins = predict_bins(sample, BINSIZE, None, pcfg, loader=loader)
+    args = (bins.results_r, bins.results_w, bins.ref_gender, bins.binsize)
+    cfg = cbs.CBSConfig(alpha=pcfg.alpha, seed=0)
+    jobs, _ = cbs._sample_jobs([args])
+    salts = [cbs._job_salt(x, w) for x, w in jobs]
+
+    def first_level(run_cfg):
+        return cbs._group_items(
+            [cbs._Item(ji, 0, len(x)) for ji, (x, _) in enumerate(jobs)
+             if len(x) >= 2 * run_cfg.min_width], run_cfg)
+
+    # One round's keys: the first group, as its first round allots rows.
+    (n_pad, _), items = first_level(cfg)[0]
+    items = items[: cfg.seg_batch]
+    b = max(64, cfg.perm_batch)
+    active = list(range(len(items)))
+    counts = cbs._alloc_rows(b, active, [cfg.nperm] * len(items))
+    n_seg = np.array([it.n for it in items])
+
+    def round_keys(dev):
+        seg, words = cbs._round_rows(items, active, counts, salts, dev)
+        n_rows = torch.as_tensor(n_seg, device=dev)[seg]
+        return lambda: cbs.perm_keys(cbs.prng_key(cfg.seed), *words, n_rows, n_pad)
+
+    keys_cpu = round_keys(cpu)()
+    keys_equal = torch.equal(round_keys(device)().cpu(), keys_cpu)
+    keys_ms = cuda_ms(round_keys(device))
+    keys_shape = list(keys_cpu.shape)
+    del keys_cpu
+
+    # First-level decisions of the device stream on both devices.
+    check_cfg = cbs.CBSConfig(alpha=0.025, nperm=40, seed=0)
+    decisions = {}
+    for name, dev in (("card", device), ("cpu", cpu)):
+        out = []
+        for (n_pad, mode), group in first_level(check_cfg):
+            lengths = torch.as_tensor(cbs._group_lengths(n_pad, check_cfg, mode),
+                                      device=dev)
+            for it in group:
+                it.max_ones = int(np.floor(check_cfg.nperm * check_cfg.alpha)) + 1
+            for chunk in cbs._chunks(group, check_cfg.seg_batch):
+                cbs._perm_loop_device(chunk, jobs, salts, n_pad, lengths,
+                                      check_cfg, dev)
+            out.append([n_pad, mode, [(it.decision, it.exceed, it.done)
+                                      for it in group]])
+        decisions[name] = out
+
+    # Whole-sample CBS, device stream then host stream, on the card.
+    times = {}
+    for stream in ("device", "host"):
+        cbs.reset_round_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        segs = cbs.exec_cbs(*args, cfg, device, _device_stream=stream == "device")
+        torch.cuda.synchronize()
+        times[stream] = (time.perf_counter() - t0, dict(cbs.ROUNDS), len(segs))
+    splits = sum(d for _, _, g in decisions["cpu"] for d, _, _ in g)
+    emit("cbs_stream", jobs=len(jobs), sizes=[len(x) for x, _ in jobs],
+         keys_round_shape=keys_shape, keys_equal=keys_equal, keys_ms=keys_ms,
+         keys_per_s=keys_shape[0] * keys_shape[1] / keys_ms * 1e3,
+         decisions_equal=decisions["card"] == decisions["cpu"],
+         first_level=decisions["card"], first_level_splits=splits,
+         cbs_device_s=round(times["device"][0], 3),
+         cbs_host_s=round(times["host"][0], 3),
+         rounds_device=times["device"][1], rounds_host=times["host"][1],
+         segments=[times["device"][2], times["host"][2]])
+    if not keys_equal:
+        raise AssertionError("Threefry keys differ between CUDA and the CPU")
+    if decisions["card"] != decisions["cpu"]:
+        raise AssertionError("device-stream decisions differ between CUDA and the CPU")
 
 
 def a_pass(samples, ref, device):
@@ -342,18 +643,27 @@ def main():
 
     from wisecondorx_tpu_torch.ops import knn_cuda
 
+    from wisecondorx_tpu_torch.ops import cbs
+
     phase_build()
-    samples, files, t21, euploid = make_cohort()
+    samples, files, t21, euploid, plate = make_cohort()
 
     knn_cuda.reset_launch_counts()
+    cbs.reset_round_counts()
     ref = phase_newref(files)
     phase_predict(ref, t21, "case_t21", want_gain_chr="21")
     phase_predict(ref, euploid, "case_euploid", want_gain_chr=None)
     launches = dict(knn_cuda.LAUNCHES)
+    rounds = dict(cbs.ROUNDS)
     for name, count in launches.items():
         if count < 1:
             raise AssertionError(f"kernel {name} was not launched on the main path")
+    emit("cbs_rounds", **rounds)
+    if rounds["device"] < 1 or rounds["host"]:
+        raise AssertionError(f"predict CBS rounds {rounds}: not the device stream")
 
+    phase_predict_batch(ref, plate, os.path.join(WORK, "case_t21"), device)
+    phase_cbs_stream(ref, t21, device)
     torch.cuda.empty_cache()
     result, k1_err, k2_err = phase_kernels(samples, ref, device)
 

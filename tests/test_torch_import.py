@@ -21,6 +21,8 @@ PORT_MODULES = [
     "wisecondorx_tpu_torch.models.reference",
     "wisecondorx_tpu_torch.models.ref_loader",
     "wisecondorx_tpu_torch.models.predictor",
+    "wisecondorx_tpu_torch.parallel",
+    "wisecondorx_tpu_torch.parallel.batch",
     "wisecondorx_tpu_torch.utils.log",
 ]
 

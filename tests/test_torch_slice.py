@@ -9,14 +9,18 @@ cohort, with the reference .npz exchanged in both directions:
   predicts and a port-built reference driving both: segments and
   aberrations byte-equal, bins and statistics to rtol 1e-9.
 
-One known difference can break the byte equality, and the cohort seed
-avoids it: predict recentres log2 ratios by their median m_lr and blanks
-bins whose recentred ratio is exactly 0.  The port (like the reference
-tool) takes both log2s with bit-equal functions, so the median bin of an
-odd count recentres to exactly 0; the JAX package takes m_lr with XLA's
-log2, which differs from numpy's by an ulp for about a third of inputs,
-and then keeps that bin.  Of 17 seeds tried, one (5) hit it.
-test_torch_pca_normalize.py pins both halves of this down on its own.
+One known difference breaks the byte equality on some cohorts: predict
+recentres log2 ratios by their median m_lr and blanks bins whose recentred
+ratio is exactly 0.  The port (like the reference tool) takes both log2s
+with bit-equal functions, so the median bin of an odd count recentres to
+exactly 0; the JAX package takes m_lr with XLA's log2, which differs from
+numpy's by an ulp for about a third of inputs, and then keeps that bin.
+Cohort seed 6 avoids it; seed 5 hits it on the port-built reference, and
+that case allows exactly that difference: the one blanked bin, and the
+rows of the segments that contain it (with the statistics drawn from
+them: its chromosome's row, the median segment variance and the CPA
+score).  test_torch_pca_normalize.py pins both halves of this down on its
+own.
 """
 
 import os
@@ -33,10 +37,8 @@ from wisecondorx_tpu_torch.cli import main as torch_cli
 REFSIZE = "40"
 
 
-@pytest.fixture(scope="module")
-def run(tmp_path_factory):
-    tmp = tmp_path_factory.mktemp("slice")
-    sim = CohortSim(binsize=1e5, genome_scale=0.02, seed=6)
+def _slice_run(tmp, seed):
+    sim = CohortSim(binsize=1e5, genome_scale=0.02, seed=seed)
     samples, _ = sim.cohort(16, 14)
     infiles = []
     for i, s in enumerate(samples):
@@ -62,6 +64,16 @@ def run(tmp_path_factory):
     return tmp, refs, out, case
 
 
+@pytest.fixture(scope="module")
+def run(tmp_path_factory):
+    return _slice_run(tmp_path_factory.mktemp("slice"), 6)
+
+
+@pytest.fixture(scope="module")
+def run_seed5(tmp_path_factory):
+    return _slice_run(tmp_path_factory.mktemp("slice5"), 5)
+
+
 def test_references_match(run):
     _, refs, _, _ = run
     j = np.load(refs["jax"], allow_pickle=True)
@@ -85,11 +97,16 @@ def _rows(path):
     return [line.rstrip("\n").split("\t") for line in open(path)]
 
 
-def _assert_close_tables(got_path, want_path):
+def _assert_close_tables(got_path, want_path, keep=None):
+    """Tables equal row by row, numbers to rtol 1e-9; rows where ``keep``
+    is False only need the same label (first column, up to any colon)."""
     got, want = _rows(got_path), _rows(want_path)
     assert len(got) == len(want)
-    for g, w in zip(got, want):
+    for i, (g, w) in enumerate(zip(got, want)):
         assert len(g) == len(w)
+        if keep is not None and not keep[i]:
+            assert g[0].split(":")[0] == w[0].split(":")[0]
+            continue
         for x, y in zip(g, w):
             try:
                 fx, fy = float(x), float(y)
@@ -99,17 +116,53 @@ def _assert_close_tables(got_path, want_path):
             assert fx == pytest.approx(fy, rel=1e-9, abs=1e-12, nan_ok=True), (g, w)
 
 
-@pytest.mark.parametrize("ref_name", ["jax", "torch"])
-def test_predict_outputs_match(run, ref_name):
+def _blanked_bins(got, want):
+    """(chr, start, end) of the bins the port blanks (nan) where the JAX
+    package prints a ratio within 1e-12 of 0."""
+    return [
+        (g[0], int(g[1]), int(g[2]))
+        for g, w in zip(_rows(got + "_bins.bed")[1:], _rows(want + "_bins.bed")[1:])
+        if g[4] == "nan" and w[4] != "nan" and abs(float(w[4])) < 1e-12
+    ]
+
+
+def _holds_bin(row, blanked):
+    return any(row[0] == c and int(row[1]) <= s and e <= int(row[2])
+               for c, s, e in blanked)
+
+
+@pytest.mark.parametrize("ref_name,seed,n_blanked", [
+    pytest.param("jax", 6, 0, id="jax"),
+    pytest.param("torch", 6, 0, id="torch"),
+    pytest.param("jax", 5, 0, id="jax-seed5"),
+    pytest.param("torch", 5, 1, id="torch-seed5"),
+])
+def test_predict_outputs_match(request, ref_name, seed, n_blanked):
     """A JAX-built reference drives the port's predict and a port-built
     reference drives the JAX predict; each is held to the other package's
-    predict on the same reference."""
-    _, _, out, _ = run
+    predict on the same reference.  Only the m_lr median bin may differ,
+    and only on the one cohort and reference where the ulp falls."""
+    _, _, out, _ = request.getfixturevalue("run" if seed == 6 else "run_seed5")
     want, got = out["jax", ref_name], out["torch", ref_name]
+    blanked = _blanked_bins(got, want)
+    assert len(blanked) == n_blanked, blanked
     for suffix in ("_segments.bed", "_aberrations.bed"):
-        assert open(got + suffix).read() == open(want + suffix).read(), suffix
-    for suffix in ("_bins.bed", "_statistics.txt"):
-        _assert_close_tables(got + suffix, want + suffix)
+        g_rows, w_rows = _rows(got + suffix), _rows(want + suffix)
+        assert [r[:3] for r in g_rows] == [r[:3] for r in w_rows], suffix
+        for g, w in zip(g_rows, w_rows):
+            if not _holds_bin(w, blanked):
+                assert g == w, (suffix, g, w)
+    keep = [not _holds_bin(r, blanked) for r in _rows(want + "_bins.bed")]
+    _assert_close_tables(got + "_bins.bed", want + "_bins.bed", keep)
+    # The blanked bin's chromosome row and the two scores taken over all
+    # segments depend on the segment that holds it.
+    from_segments = ("Median segment variance", "Copy number profile")
+    blanked_chr = {c for c, _, _ in blanked}
+    keep = [r[0] not in blanked_chr
+            and not (blanked and r[0].startswith(from_segments))
+            for r in _rows(want + "_statistics.txt")]
+    _assert_close_tables(got + "_statistics.txt", want + "_statistics.txt",
+                         keep)
     gains = [r for r in _rows(got + "_aberrations.bed")[1:] if r[-1] == "gain"]
     assert any(r[0] == "11" for r in gains)
 
@@ -146,8 +199,6 @@ def test_gender_subcommand(run, capsys):
     ["predict", "a.npz", "r.npz", "out", "--bed", "--plot", "--device", "cpu"],
     ["newref", "a.npz", "b.npz", "r.npz", "--checkpoint-dir", "ck",
      "--device", "cpu"],
-    ["convert", "in.bam", "out.npz"],
-    ["predict-batch", "r.npz", "outdir", "--infiles", "a.npz"],
 ])
 def test_cli_refuses_what_is_not_ported(argv, caplog):
     with pytest.raises(SystemExit) as exc:

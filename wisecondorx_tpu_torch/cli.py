@@ -1,11 +1,12 @@
 """Command-line interface of the PyTorch port: ``wisecondorx-tpu-torch``.
 
-``newref``, ``predict --bed`` and ``gender`` take the JAX CLI's flags and
-read and write the same ``.npz`` schemas, plus ``--device {cuda,cpu}``
-(default ``cuda``, which fails when no CUDA device is present).  What the
-port does not carry yet -- ``convert``, ``predict-batch``, ``--plot``,
-``--plotyfrac`` and ``--checkpoint-dir`` -- exits non-zero with a message
-naming the JAX CLI (``wisecondorx-tpu``).
+``convert``, ``newref``, ``predict --bed``, ``predict-batch --bed`` and
+``gender`` take the JAX CLI's flags and read and write the same ``.npz``
+schemas; the device stages add ``--device {cuda,cpu}`` (default ``cuda``,
+which fails when no CUDA device is present).  ``convert`` runs the shared
+host reader and touches no device.  What the port does not carry yet --
+``--plot``, ``--plotyfrac`` and ``--checkpoint-dir`` -- exits non-zero with
+a message naming the JAX CLI (``wisecondorx-tpu``).
 """
 
 from __future__ import annotations
@@ -27,6 +28,19 @@ def _not_ported(what: str):
         "(wisecondorx-tpu) for it", what,
     )
     sys.exit(2)
+
+
+def tool_convert(args):
+    from wisecondorx_tpu.io.bam import convert_reads
+    from wisecondorx_tpu.io.npz import save_sample_npz
+
+    logging.info("Starting conversion")
+    sample, qual_info = convert_reads(
+        args.infile, binsize=args.binsize, reference_fasta=args.reference,
+        normdup=args.normdup,
+    )
+    save_sample_npz(args.outfile, args.binsize, sample, qual_info)
+    logging.info("Finished conversion")
 
 
 def tool_newref(args):
@@ -85,18 +99,12 @@ def output_gender(args):
     print("male" if gender == "M" else "female")
 
 
-def tool_test(args):
-    from wisecondorx_tpu.output.tables import generate_output_tables
-    from wisecondorx_tpu_torch.device import resolve_device
-    from wisecondorx_tpu_torch.models.predictor import (
-        PredictConfig,
-        PredictError,
-        predict,
-    )
-    from wisecondorx_tpu_torch.models.ref_loader import load_reference
+def _predict_config(args):
+    """PredictConfig of the predict flags; exits on an invalid value."""
+    from wisecondorx_tpu_torch.models.predictor import PredictConfig, PredictError
 
     if args.plot:
-        _not_ported("predict --plot")
+        _not_ported(f"{args.command} --plot")
     if not args.bed:
         logging.critical(
             "No output format selected. Select --bed (the port does not "
@@ -113,21 +121,97 @@ def tool_test(args):
     except PredictError as e:
         logging.critical(str(e))
         sys.exit(1)
+    return cfg
+
+
+def tool_test(args):
+    from wisecondorx_tpu.output.tables import generate_output_tables
+    from wisecondorx_tpu_torch.device import resolve_device
+    from wisecondorx_tpu_torch.models.predictor import PredictError, predict
+    from wisecondorx_tpu_torch.models.ref_loader import ReferenceLoader
+
+    cfg = _predict_config(args)
     device = resolve_device(args.device)
     logging.info("Starting CNA prediction on %s", device)
     with stage_timer("predict.load_sample"):
         sample, sample_binsize, _ = load_sample_npz(args.infile)
-    with stage_timer("predict.load_reference"):
-        ref = load_reference(args.reference, device, cfg.maskrepeats)
-    try:
-        bins, segments = predict(sample, sample_binsize, ref, cfg)
-    except PredictError as e:
-        logging.critical(str(e))
-        sys.exit(1)
+    with ReferenceLoader(args.reference, device) as loader:
+        try:
+            bins, segments = predict(sample, sample_binsize, None, cfg,
+                                     loader=loader)
+        except PredictError as e:
+            logging.critical(str(e))
+            sys.exit(1)
     with stage_timer("predict.write"):
         generate_output_tables(args.outid, bins, segments, cfg,
                                regions=args.regions)
     logging.info("Finished prediction")
+
+
+def tool_test_batch(args):
+    """Score a plate of samples against one reference in one invocation.
+    Unreadable samples and samples that fail preparation are logged and
+    skipped, the others are written, and the exit code is then 3."""
+    import os
+    import pickle
+    import zipfile
+
+    from wisecondorx_tpu.errors import UserInputError
+    from wisecondorx_tpu.output.tables import generate_output_tables
+    from wisecondorx_tpu_torch.device import resolve_device
+    from wisecondorx_tpu_torch.models.predictor import (
+        PredictError,
+        segment_bins_batch,
+    )
+    from wisecondorx_tpu_torch.models.ref_loader import ReferenceLoader
+    from wisecondorx_tpu_torch.parallel.batch import predict_batch
+
+    cfg = _predict_config(args)
+    device = resolve_device(args.device)
+    os.makedirs(args.outdir, exist_ok=True)
+    loaded, outids, infiles_loaded, failed = [], [], [], []
+    with stage_timer("predict_batch.load_samples"):
+        for infile in args.infiles:
+            try:
+                sample, binsize, _ = load_sample_npz(infile)
+            except (UserInputError, FileNotFoundError, KeyError,
+                    zipfile.BadZipFile, pickle.UnpicklingError) as e:
+                logging.error("Skipping unreadable sample %s: %s", infile, e)
+                failed.append(infile)
+                continue
+            infiles_loaded.append(infile)
+            loaded.append((sample, binsize))
+            base = os.path.basename(infile)
+            outids.append(os.path.join(
+                args.outdir, base[:-4] if base.endswith(".npz") else base
+            ))
+    logging.info("Batch prediction: %d samples on %s", len(loaded), device)
+    with ReferenceLoader(args.reference, device) as loader:
+        try:
+            all_bins = predict_batch(loaded, loader, cfg, chunk=args.chunk,
+                                     skip_errors=True)
+        except PredictError as e:
+            logging.critical(str(e))
+            sys.exit(1)
+    good = []
+    for infile, outid, bins in zip(infiles_loaded, outids, all_bins):
+        if bins is None:
+            failed.append(infile)
+        else:
+            good.append((outid, bins))
+    all_segments = segment_bins_batch([b for _, b in good], cfg, device)
+    with stage_timer("predict_batch.write"):
+        for (outid, bins), segments in zip(good, all_segments):
+            generate_output_tables(outid, bins, segments, cfg,
+                                   regions=args.regions)
+            logging.info("Wrote %s", outid)
+    logging.info("Finished batch prediction")
+    if failed:
+        logging.error(
+            "%d of %d samples failed and were skipped (see errors above): %s",
+            len(failed), len(args.infiles), ", ".join(failed),
+        )
+        sys.exit(3)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -143,9 +227,19 @@ def build_parser() -> argparse.ArgumentParser:
         p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                        help="Device to run on; cuda fails when none is present")
 
-    p = sub.add_parser("convert", description="Not ported: use wisecondorx-tpu convert")
-    p.add_argument("args", nargs=argparse.REMAINDER)
-    p.set_defaults(func=lambda args: _not_ported("convert"))
+    p = sub.add_parser(
+        "convert", formatter_class=fmt,
+        description="Convert and filter aligned reads to .npz",
+    )
+    p.add_argument("infile", type=str, help="aligned reads input (.bam or .cram)")
+    p.add_argument("outfile", type=str, help="Output .npz file")
+    p.add_argument("-r", "--reference", type=str,
+                   help="Fasta reference (accepted for compatibility; the "
+                   "native CRAM reader needs none)")
+    p.add_argument("--binsize", type=float, default=5e3, help="Bin size (bp)")
+    p.add_argument("--normdup", action="store_true",
+                   help="Do not remove duplicates")
+    p.set_defaults(func=tool_convert)
 
     p = sub.add_parser(
         "newref", formatter_class=fmt,
@@ -173,32 +267,44 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("reference", type=str)
     p.set_defaults(func=output_gender)
 
+    def predict_flags(p):
+        p.add_argument("--minrefbins", type=int, default=150)
+        p.add_argument("--maskrepeats", type=int, default=5)
+        p.add_argument("--alpha", type=float, default=1e-4)
+        p.add_argument("--zscore", type=float, default=5)
+        p.add_argument("--beta", type=float, default=None)
+        p.add_argument("--blacklist", type=str, default=None)
+        p.add_argument("--gender", type=str, choices=["F", "M"])
+        p.add_argument("--ylim", type=str, default="def")
+        p.add_argument("--bed", action="store_true")
+        p.add_argument("--plot", action="store_true")
+        p.add_argument("--cairo", action="store_true")
+        p.add_argument("--add-plot-title", action="store_true")
+        p.add_argument("--seed", type=int, default=None)
+        p.add_argument("--regions", type=str, default=None)
+        device_flag(p)
+
     p = sub.add_parser("predict", formatter_class=fmt,
                        description="Find copy number aberrations")
     p.add_argument("infile", type=str)
     p.add_argument("reference", type=str)
     p.add_argument("outid", type=str)
-    p.add_argument("--minrefbins", type=int, default=150)
-    p.add_argument("--maskrepeats", type=int, default=5)
-    p.add_argument("--alpha", type=float, default=1e-4)
-    p.add_argument("--zscore", type=float, default=5)
-    p.add_argument("--beta", type=float, default=None)
-    p.add_argument("--blacklist", type=str, default=None)
-    p.add_argument("--gender", type=str, choices=["F", "M"])
-    p.add_argument("--ylim", type=str, default="def")
-    p.add_argument("--bed", action="store_true")
-    p.add_argument("--plot", action="store_true")
-    p.add_argument("--cairo", action="store_true")
-    p.add_argument("--add-plot-title", action="store_true")
-    p.add_argument("--seed", type=int, default=None)
-    p.add_argument("--regions", type=str, default=None)
-    device_flag(p)
-    p.set_defaults(func=tool_test)
+    predict_flags(p)
+    p.set_defaults(func=tool_test, command="predict")
 
-    p = sub.add_parser("predict-batch",
-                       description="Not ported: use wisecondorx-tpu predict-batch")
-    p.add_argument("args", nargs=argparse.REMAINDER)
-    p.set_defaults(func=lambda args: _not_ported("predict-batch"))
+    p = sub.add_parser(
+        "predict-batch", formatter_class=fmt,
+        description="Find copy number aberrations for a batch of samples "
+        "in one invocation",
+    )
+    p.add_argument("reference", type=str)
+    p.add_argument("outdir", type=str, help="Output directory; per-sample "
+                   "outid = <outdir>/<input basename without .npz>")
+    p.add_argument("--infiles", type=str, nargs="+", required=True)
+    p.add_argument("--chunk", type=int, default=8,
+                   help="Samples normalized together")
+    predict_flags(p)
+    p.set_defaults(func=tool_test_batch, command="predict-batch")
     return parser
 
 

@@ -1,10 +1,11 @@
 """CNA prediction (the ``predict`` stage) on a device.
 
-Counterpart of wisecondorx_tpu/models/predictor.py (the in-memory path):
-coverage-normalize -> PCA-project -> three-round z-masked normalization,
-once for the autosomes and once for the applicable gonosomal pass, then
-combined, post-processed and log2-transformed on the host, and segmented
-by CBS (ops/cbs.py).
+Counterpart of wisecondorx_tpu/models/predictor.py: coverage-normalize ->
+PCA-project -> three-round z-masked normalization, once for the autosomes
+and once for the applicable gonosomal pass, then combined, post-processed
+and log2-transformed on the host, and segmented by CBS (ops/cbs.py).  The
+reference tables come from an in-memory :class:`DeviceReference` or are
+streamed by a :class:`ReferenceLoader`.
 """
 
 from __future__ import annotations
@@ -19,7 +20,11 @@ import torch
 from wisecondorx_tpu.errors import UserInputError
 from wisecondorx_tpu.genome import GenomeLayout, MaskedLayout
 from wisecondorx_tpu.io.npz import gender_correct, scale_sample
-from wisecondorx_tpu_torch.models.ref_loader import DeviceReference, PassTables
+from wisecondorx_tpu_torch.models.ref_loader import (
+    DeviceReference,
+    PassTables,
+    ReferenceLoader,
+)
 from wisecondorx_tpu_torch.ops import normalize as norm_ops
 from wisecondorx_tpu_torch.ops import pca as pca_ops
 from wisecondorx_tpu_torch.ops.gmm import predict_gender
@@ -145,35 +150,56 @@ def prepare_sample(sample, sample_binsize, ref_passes, ref_meta, cfg):
     return sample, gender, ref_gender, n_reads
 
 
-def predict_bins(sample: dict, sample_binsize: int, ref: DeviceReference,
-                 cfg: PredictConfig = PredictConfig()) -> BinResults:
-    """Combined per-bin r/z/w/null-ratio results for one test sample."""
+def predict_bins(sample: dict, sample_binsize: int,
+                 ref: DeviceReference | None,
+                 cfg: PredictConfig = PredictConfig(),
+                 loader: ReferenceLoader | None = None) -> BinResults:
+    """Combined per-bin r/z/w/null-ratio results for one test sample.
+
+    The tables come from ``ref`` or, when ``loader`` is given (and ``ref``
+    is None), are streamed by it: only the autosomal pass and the pass the
+    sample's gender resolves to are read."""
     cfg.validate()
+    src = loader if loader is not None else ref
     sample, gender, ref_gender, n_reads = prepare_sample(
-        sample, sample_binsize, ref.passes, ref.meta, cfg
+        sample, sample_binsize, src.passes, src.meta, cfg
     )
-    a_pass, g_pass = ref.passes["A"], ref.passes[ref_gender]
+    a_pass, g_pass = src.passes["A"], src.passes[ref_gender]
+    null_tables = None
+    if loader is not None:
+        loader.start([ref_gender], cfg.maskrepeats)
+        tables_a, tables_g = loader.tables("A"), loader.tables(ref_gender)
+        null_tables = (loader.null_ratios("A"), loader.null_ratios(ref_gender))
+    else:
+        tables_a, tables_g = ref.tables["A"], ref.tables[ref_gender]
     with stage_timer("predict.normalize_autosomes"):
         z_a, r_a, w_a, sizes_a, m_lr, m_z = _pass_normalize(
-            sample, a_pass, ref.tables["A"]
+            sample, a_pass, tables_a
         )
     with stage_timer("predict.normalize_gonosomes"):
         z_g, r_g, w_g, sizes_g, _, _ = _pass_normalize(
-            sample, g_pass, ref.tables[ref_gender]
+            sample, g_pass, tables_g
         )
     return assemble_results(
         (z_a, r_a, w_a, sizes_a, m_lr, m_z),
         (z_g, r_g, w_g, sizes_g),
-        ref.tables[ref_gender].ml, a_pass, g_pass, cfg,
+        tables_g.ml, a_pass, g_pass, cfg,
         ref_gender=ref_gender, gender=gender, n_reads=n_reads,
+        null_tables=null_tables,
     )
 
 
 def assemble_results(a_results, g_results, g_ml, a_pass, g_pass, cfg, *,
-                     ref_gender, gender, n_reads) -> BinResults:
-    """Combine the two passes' outputs into per-chromosome BinResults."""
+                     ref_gender, gender, n_reads,
+                     null_tables=None) -> BinResults:
+    """Combine the two passes' outputs into per-chromosome BinResults.
+
+    ``null_tables`` gives the (autosomal, gonosomal) null ratios where the
+    pass dicts hold only the small members (the streamed path)."""
     z_a, r_a, w_a, sizes_a, m_lr, m_z = a_results
     z_g, r_g, w_g, sizes_g = g_results
+    if null_tables is None:
+        null_tables = (a_pass["null_ratios"], g_pass["null_ratios"])
     ref_binsize = int(np.atleast_1d(a_pass["binsize"])[0])
 
     results_r = np.concatenate([r_a, r_g])
@@ -194,8 +220,8 @@ def assemble_results(a_results, g_results, g_ml, a_pass, g_pass, cfg, *,
         results_w = np.ones(len(results_w))
     ref_sizes = np.concatenate([sizes_a, sizes_g])
 
-    null_aut = np.asarray(a_pass["null_ratios"], dtype=np.float64)
-    null_gon = np.asarray(g_pass["null_ratios"], dtype=np.float64)[len(null_aut):]
+    null_aut = np.asarray(null_tables[0], dtype=np.float64)
+    null_gon = np.asarray(null_tables[1], dtype=np.float64)[len(null_aut):]
 
     if len(results_r) != g_ml.n_masked:
         raise PredictError(
@@ -241,9 +267,20 @@ def assemble_results(a_results, g_results, g_ml, a_pass, g_pass, cfg, *,
     )
 
 
-def segment_bins(bins: BinResults, cfg: PredictConfig, device: torch.device):
+def segment_bins(bins: BinResults, cfg: PredictConfig, device: torch.device,
+                 _device_stream: bool | None = None):
     """CBS segmentation + between-sample segment z-scores.  Returns rows
     ``[chr0, start, end, segment_z, ratio]``."""
+    return segment_bins_batch([bins], cfg, device, _device_stream)[0]
+
+
+def segment_bins_batch(all_bins: list, cfg: PredictConfig,
+                       device: torch.device,
+                       _device_stream: bool | None = None) -> list:
+    """CBS and segment z-scores for a plate of samples: every pending
+    segment of every sample joins the same permutation rounds.  Returns one
+    :func:`segment_bins` row list per sample.  ``_device_stream`` overrides
+    the permutation stream the device picks (see ``ops.cbs``)."""
     from wisecondorx_tpu.ops import stats as stats_ops
     from wisecondorx_tpu_torch.ops import cbs as cbs_ops
 
@@ -251,25 +288,30 @@ def segment_bins(bins: BinResults, cfg: PredictConfig, device: torch.device):
         cbs_cfg = cbs_ops.CBSConfig(
             alpha=cfg.alpha, seed=cfg.seed if cfg.seed is not None else 0
         )
-        results_c = cbs_ops.exec_cbs(
-            bins.results_r, bins.results_w, bins.ref_gender, bins.binsize,
-            cbs_cfg, device=device,
+        per_sample_c = cbs_ops.exec_cbs_batch(
+            [(b.results_r, b.results_w, b.ref_gender, b.binsize)
+             for b in all_bins],
+            cbs_cfg, device=device, _device_stream=_device_stream,
         )
+    out = []
     with stage_timer("predict.segment_z"):
-        segment_z = stats_ops.get_z_score(
-            results_c, bins.results_r, bins.results_w, bins.results_nr
-        )
-    return [
-        [row[0], row[1], row[2], segment_z[i], row[3]]
-        for i, row in enumerate(results_c)
-    ]
+        for bins, results_c in zip(all_bins, per_sample_c):
+            segment_z = stats_ops.get_z_score(
+                results_c, bins.results_r, bins.results_w, bins.results_nr
+            )
+            out.append([[row[0], row[1], row[2], segment_z[i], row[3]]
+                        for i, row in enumerate(results_c)])
+    return out
 
 
-def predict(sample: dict, sample_binsize: int, ref: DeviceReference,
-            cfg: PredictConfig = PredictConfig()):
-    """Full prediction: (BinResults, segment rows)."""
-    bins = predict_bins(sample, sample_binsize, ref, cfg)
-    device = ref.tables["A"].sentinel_idx.device
+def predict(sample: dict, sample_binsize: int, ref: DeviceReference | None,
+            cfg: PredictConfig = PredictConfig(),
+            loader: ReferenceLoader | None = None):
+    """Full prediction: (BinResults, segment rows).  ``ref`` or ``loader``
+    supplies the tables, as in :func:`predict_bins`."""
+    bins = predict_bins(sample, sample_binsize, ref, cfg, loader=loader)
+    device = (loader.device if loader is not None
+              else ref.tables["A"].sentinel_idx.device)
     return bins, segment_bins(bins, cfg, device)
 
 

@@ -6,11 +6,17 @@ over arc lengths run as torch ops on the given device in float64; the
 recursion, the significance decisions and the post-processing run on the
 host.
 
-Permutations come from the JAX package's host per-draw stream: draw ``d``
-of a segment is ``np.random.default_rng([seed, salt, lo, hi, d])
-.permutation(n)``, keyed by the segment's content salt, so the decisions
-equal the JAX package's CPU run on every device.  A counter-based device
-stream is later work.
+Permutations come from one of two streams, each keyed per draw by (seed,
+the segment's content salt, its lo/hi, the draw index), so a segment's
+draws do not depend on how segments are batched:
+
+* the device stream (on CUDA): :func:`perm_round_device` makes the sort
+  keys of a whole round with Threefry-2x32 in plain torch integer ops,
+  bit-equal to ``jax.random`` (``fold_in`` over the four key words, then
+  ``bits``), so the decisions equal the JAX package's accelerator path;
+* the host stream (on the CPU): draw ``d`` is
+  ``np.random.default_rng([seed, salt, lo, hi, d]).permutation(n)``, so
+  the decisions equal the JAX package's CPU run.
 """
 
 from __future__ import annotations
@@ -27,7 +33,9 @@ class CBSConfig:
     alpha: float = 1e-4
     nperm: int = 10000
     min_width: int = 2
-    #: Permutation rows per round.
+    #: Permutation rows per round, in either stream.  The early stop acts
+    #: between rounds; the decisions do not depend on the round size (draws
+    #: are keyed by index), only the time does.
     perm_batch: int = 1024
     seed: int | None = 0
     #: All arc lengths <= kmax are tested exactly, wrap-around arcs too.
@@ -37,11 +45,25 @@ class CBSConfig:
     #: Segments up to this size use every arc length in the permutation
     #: test; larger ones use the thinned length family.
     exact_max: int = 2048
+    #: "perm" (Monte-Carlo permutation) or "hybrid" (permutation over the
+    #: arcs up to kmax plus an analytic tail bound for the longer ones).
+    p_method: str = "perm"
     #: Accept a split iff the observed max |T| >= this value, without a
     #: permutation test (deterministic mode).
     t_threshold: float | None = None
     #: Max segments decided together.
     seg_batch: int = 32
+
+
+#: Permutation rounds run per stream since the last reset.  A device round
+#: is one :func:`perm_round_device` call; a host round is one batch of
+#: host-drawn permutations.
+ROUNDS = {"device": 0, "host": 0}
+
+
+def reset_round_counts() -> None:
+    for key in ROUNDS:
+        ROUNDS[key] = 0
 
 
 def _bucket(n: int) -> int:
@@ -52,21 +74,103 @@ def _bucket(n: int) -> int:
     return p
 
 
-def _arc_lengths(n_pad: int, cfg: CBSConfig) -> np.ndarray:
-    """Thinned window-length family of a size bucket: every length in
-    [min_width, kmax] plus a geometric grid up to ``n_pad``."""
+def _arc_lengths(n_pad: int, cfg: CBSConfig, short_only: bool = False):
+    """Window-length family of a size bucket: every length in
+    [min_width, kmax] plus, unless ``short_only``, a geometric grid up to
+    ``n_pad``."""
     ls = set(range(cfg.min_width, cfg.kmax + 1))
-    length = float(cfg.kmax)
-    while length < n_pad:
-        length = max(length * cfg.length_ratio, length + 1.0)
-        ls.add(min(int(length), n_pad))
+    if not short_only:
+        length = float(cfg.kmax)
+        while length < n_pad:
+            length = max(length * cfg.length_ratio, length + 1.0)
+            ls.add(min(int(length), n_pad))
     return np.array(sorted(ls), dtype=np.int64)
 
 
 def _group_lengths(n_pad: int, cfg: CBSConfig, mode: str) -> np.ndarray:
+    """Lengths of a (bucket, mode) group: "exact" every length, "thin" the
+    thinned family, "short" hybrid's lengths up to kmax."""
     if mode == "exact":
         return np.arange(n_pad, dtype=np.int64)
-    return _arc_lengths(n_pad, cfg)
+    return _arc_lengths(n_pad, cfg, short_only=(mode == "short"))
+
+
+# ---------------------------------------------------------------------------
+# Threefry-2x32 counter stream (jax.random's, on int64 tensors)
+# ---------------------------------------------------------------------------
+
+_M32 = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def threefry2x32(k0, k1, x0, x1):
+    """Threefry-2x32 with 20 rounds.  Key words and counters are int64
+    tensors (or ints) holding uint32 values, broadcast together; returns
+    the two output words, each in [0, 2^32).
+
+    ``x0`` only feeds additions and XORs, whose low 32 bits depend only on
+    the operands' low 32 bits, so it is masked once at the end; ``x1`` is
+    masked before every rotation."""
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0 = x0 + k0
+    x1 = (x1 + k1) & _M32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = x0 + x1
+            x1 = (((x1 << r) | (x1 >> (32 - r))) ^ x0) & _M32
+        x0 = x0 + ks[(i + 1) % 3]
+        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & _M32
+    return x0 & _M32, x1
+
+
+def prng_key(seed: int):
+    """``jax.random.PRNGKey(seed)`` as two uint32 words (x64 semantics: a
+    seed >= 2^32 or < 0 splits as (seed >> 32, seed & 0xFFFFFFFF))."""
+    seed = int(seed)
+    return (seed >> 32) & _M32, seed & _M32
+
+
+def fold_in(key, data: torch.Tensor):
+    """``jax.random.fold_in`` for a batch of int64 ``data`` words (taken
+    mod 2^32): one key per entry."""
+    data = data & _M32
+    return threefry2x32(key[0], key[1], torch.zeros_like(data), data)
+
+
+def random_bits(key, n: int):
+    """``jax.random.bits(key, (n,), uint32)`` for a batch of keys
+    ([B] words): [B, n] int64, entry i = x0 ^ x1 of threefry(key, (0, i))."""
+    k0, k1 = key
+    device = k1.device if torch.is_tensor(k1) else torch.device("cpu")
+    idx = torch.arange(n, dtype=torch.int64, device=device)
+    y0, y1 = threefry2x32(_col(k0), _col(k1), torch.zeros_like(idx), idx)
+    return y0 ^ y1
+
+
+def _col(k):
+    return k[:, None] if torch.is_tensor(k) else k
+
+
+def perm_keys(base_key, row_salt, row_lo, row_hi, row_draw, n_rows,
+              n_pad: int):
+    """Sort keys of a round's permutation rows, [B, n_pad] int64: random
+    31-bit keys on a row's real slots, ``0x80000000 | slot`` on its padding
+    (which then sorts to the tail in slot order)."""
+    k = base_key
+    for word in (row_salt, row_lo, row_hi, row_draw):
+        k = fold_in(k, word)
+    bits = random_bits(k, n_pad) & 0x7FFFFFFF
+    idx = torch.arange(n_pad, dtype=torch.int64, device=bits.device)
+    return torch.where(idx < n_rows[:, None], bits, 0x80000000 | idx)
+
+
+def shuffle_rows(keys, w_rows, wx_rows):
+    """Sort each row by its keys, carrying the (w, w*x) payloads: a joint
+    uniform shuffle of each row's pairs.  The sort is stable; the JAX
+    package's is not, so rows where two real slots draw the same key
+    (probability ~ n^2 / 2^32 per row) may order differently."""
+    order = torch.sort(keys, dim=1, stable=True).indices
+    return w_rows.gather(1, order), wx_rows.gather(1, order)
 
 
 # ---------------------------------------------------------------------------
@@ -201,6 +305,70 @@ def locate_rows(w_seg, wx_seg, n_seg, min_width: int):
     return best_i, best_l
 
 
+def perm_round_device(base_key, w_seg, wx_seg, n_seg, seg_of_row, row_live,
+                      row_salt, row_lo, row_hi, row_draw, obs_ext, lengths,
+                      min_width: int, kmax: int, use_ext_obs: bool = False):
+    """One permutation round for a chunk of S segments, generated on the
+    segments' device.
+
+    ``w_seg``/``wx_seg`` [S, n_pad] (zero past ``n_seg[s]``); per
+    permutation row b: its segment ``seg_of_row[b]``, whether it counts
+    (``row_live``), and its key words (salt, lo, hi, draw).  The S
+    unshuffled segments are scored with the permuted rows, so the observed
+    statistic comes out of the same round; with ``use_ext_obs`` (hybrid)
+    the permuted maxima are compared with ``obs_ext`` instead.
+
+    Returns (exceed counts [S] int64, observed max |T| [S])."""
+    ROUNDS["device"] += 1
+    s = w_seg.shape[0]
+    n_rows = n_seg[seg_of_row]
+    keys = perm_keys(base_key, row_salt, row_lo, row_hi, row_draw, n_rows,
+                     w_seg.shape[1])
+    w_p, wx_p = shuffle_rows(keys, w_seg[seg_of_row], wx_seg[seg_of_row])
+    best = max_t_rows(torch.cat([w_seg, w_p]), torch.cat([wx_seg, wx_p]),
+                      torch.cat([n_seg, n_rows]), lengths, min_width, kmax)
+    obs = best[:s]
+    obs_cmp = obs_ext if use_ext_obs else obs
+    ex = (best[s:] >= obs_cmp[seg_of_row]) & row_live
+    counts = torch.zeros(s, dtype=torch.int64, device=w_seg.device)
+    counts.index_add_(0, seg_of_row, ex.to(torch.int64))
+    return counts, obs
+
+
+# ---------------------------------------------------------------------------
+# Analytic tail (the "hybrid" p-method)
+# ---------------------------------------------------------------------------
+
+
+def _nu(x):
+    """Siegmund's overshoot correction nu(x) (computable approximation)."""
+    from scipy.stats import norm
+
+    x = np.maximum(np.asarray(x, dtype=np.float64), 1e-8)
+    phi = norm.pdf(x / 2)
+    cdf = norm.cdf(x / 2)
+    return ((2.0 / x) * (cdf - 0.5)) / ((x / 2) * cdf + phi)
+
+
+def _tail_prob_long_arcs(b: float, n: int, kmax: int) -> float:
+    """P(max |T| over arcs longer than kmax >= b) under H0: the
+    Siegmund-type two-parameter approximation of the JAX package (which
+    documents its calibration; it is anti-conservative on skewed weights,
+    so "perm" stays the default)."""
+    from scipy.stats import norm
+
+    if not np.isfinite(b) or b <= 1.0:
+        return 1.0
+    t0 = max(kmax / n, 1e-6)
+    if t0 >= 0.5:
+        return 0.0
+    t = np.linspace(t0, 0.5, 1024)
+    tt = t * (1.0 - t)
+    integrand = _nu(b * np.sqrt(2.0 / (n * tt))) ** 2 / tt**2
+    p = float(b**3 * norm.pdf(b) * np.trapezoid(integrand, t))
+    return min(max(p, 0.0), 1.0)
+
+
 # ---------------------------------------------------------------------------
 # Host orchestration
 # ---------------------------------------------------------------------------
@@ -268,44 +436,136 @@ def _chunks(seq, size):
         yield seq[a : a + size]
 
 
-def _decide_group(items, jobs, salts, n_pad, mode, cfg, device):
+def _live(it, cfg):
+    return it.decision is None and it.done < cfg.nperm
+
+
+def _settle(it, cfg):
+    """Early stop once p > alpha is proven; accept after the full budget."""
+    if it.exceed >= it.max_ones:
+        it.decision = False
+    elif it.done >= cfg.nperm:
+        it.decision = True
+
+
+def _decide_group(items, jobs, salts, n_pad, mode, cfg, device,
+                  device_stream):
     """Decide split significance for every item of one (bucket, mode)
-    group; fills ``it.decision``."""
+    group; fills ``it.decision``.
+
+    The host stream and the hybrid tail test need the observed statistic
+    first; the device stream takes it from the permutation round itself.
+    Hybrid's observed statistic is over the full thinned family, the one
+    the analytic tail and the short-arc permutation maxima are held to."""
     lengths = torch.as_tensor(_group_lengths(n_pad, cfg, mode), device=device)
-    observed = {}
-    for chunk in _chunks(items, cfg.seg_batch):
-        w_seg, wx_seg, n_seg = _seg_tables(chunk, jobs, n_pad, device)
-        obs = max_t_rows(w_seg, wx_seg, n_seg, lengths, cfg.min_width,
-                         cfg.kmax).cpu().numpy()
-        for s, it in enumerate(chunk):
-            o = float(obs[s])
-            if not np.isfinite(o) or o <= 0:
-                it.decision = False
-            elif cfg.t_threshold is not None:
-                it.decision = bool(o >= cfg.t_threshold)
-            else:
-                observed[id(it)] = o
+    budgets = {}
+    if cfg.t_threshold is not None or mode == "short" or not device_stream:
+        obs_lengths = lengths
+        if mode == "short":
+            obs_lengths = torch.as_tensor(_group_lengths(n_pad, cfg, "thin"),
+                                          device=device)
+        for chunk in _chunks(items, cfg.seg_batch):
+            w_seg, wx_seg, n_seg = _seg_tables(chunk, jobs, n_pad, device)
+            obs = max_t_rows(w_seg, wx_seg, n_seg, obs_lengths,
+                             cfg.min_width, cfg.kmax).cpu().numpy()
+            for s, it in enumerate(chunk):
+                o = float(obs[s])
+                if not np.isfinite(o) or o <= 0:
+                    it.decision = False
+                elif cfg.t_threshold is not None:
+                    it.decision = bool(o >= cfg.t_threshold)
+                elif mode == "short":
+                    # The analytic long-arc tail first; the permutation
+                    # part spends what is left of alpha.
+                    p_tail = _tail_prob_long_arcs(o, it.n, cfg.kmax)
+                    if p_tail > cfg.alpha:
+                        it.decision = False
+                    else:
+                        budgets[id(it)] = (o, cfg.alpha - p_tail)
+                else:
+                    budgets[id(it)] = (o, cfg.alpha)
     if cfg.t_threshold is not None:
         return
     undecided = [it for it in items if it.decision is None]
     for it in undecided:
-        it.max_ones = int(np.floor(cfg.nperm * cfg.alpha)) + 1
+        alpha = budgets[id(it)][1] if id(it) in budgets else cfg.alpha
+        it.max_ones = int(np.floor(cfg.nperm * alpha)) + 1
     for chunk in _chunks(undecided, cfg.seg_batch):
-        _perm_loop(chunk, jobs, salts, n_pad, lengths, cfg, observed, device)
+        if device_stream:
+            ext_obs = ([budgets[id(it)][0] for it in chunk]
+                       if mode == "short" else None)
+            _perm_loop_device(chunk, jobs, salts, n_pad, lengths, cfg, device,
+                              ext_obs=ext_obs)
+        else:
+            _perm_loop_host(chunk, jobs, salts, n_pad, lengths, cfg,
+                            {id(it): budgets[id(it)][0] for it in chunk},
+                            device)
 
 
-def _perm_loop(chunk, jobs, salts, n_pad, lengths, cfg, observed, device):
+def _perm_loop_device(chunk, jobs, salts, n_pad, lengths, cfg, device,
+                      ext_obs=None):
+    """Early-terminating permutation rounds with the permutations generated
+    on the device: ``perm_batch`` rows per round, fair-shared among the
+    undecided items.  ``ext_obs`` (hybrid): per-item observed statistic the
+    permuted maxima are compared with."""
+    w_seg, wx_seg, n_seg = _seg_tables(chunk, jobs, n_pad, device)
+    base_key = prng_key(0 if cfg.seed is None else cfg.seed)
+    use_ext = ext_obs is not None
+    obs_ext = torch.as_tensor(
+        ext_obs if use_ext else np.zeros(len(chunk)), dtype=w_seg.dtype,
+        device=device,
+    )
+    b = max(64, int(cfg.perm_batch))
+    while any(_live(it, cfg) for it in chunk):
+        active = [s for s, it in enumerate(chunk) if _live(it, cfg)]
+        counts = _alloc_rows(b, active,
+                             [cfg.nperm - chunk[s].done for s in active])
+        seg_of_row, words = _round_rows(chunk, active, counts, salts, device)
+        ex_counts, _ = perm_round_device(
+            base_key, w_seg, wx_seg, n_seg, seg_of_row,
+            torch.ones(len(seg_of_row), dtype=torch.bool, device=device),
+            *words, obs_ext, lengths, cfg.min_width, cfg.kmax, use_ext,
+        )
+        ex_counts = ex_counts.cpu().numpy()
+        for pos, s in enumerate(active):
+            it = chunk[s]
+            it.exceed += int(ex_counts[s])
+            it.done += counts[pos]
+            _settle(it, cfg)
+    for it in chunk:
+        if it.decision is None:
+            it.decision = it.exceed < it.max_ones
+
+
+def _round_rows(chunk, active, counts, salts, device):
+    """Segment slot [B] and key words (salt, lo, hi, draw) [4, B] of one
+    device-stream round: ``counts[pos]`` rows for item ``chunk[active[pos]]``,
+    its next draws.  Rows nobody was given are left out: they would not
+    count."""
+    seg_of_row = np.repeat(active, counts)
+    words = np.zeros((4, len(seg_of_row)), dtype=np.int64)
+    r = 0
+    for pos, s in enumerate(active):
+        k = counts[pos]
+        it = chunk[s]
+        words[:, r : r + k] = [[salts[it.ji]], [it.lo], [it.hi], [0]]
+        words[3, r : r + k] = np.arange(it.done, it.done + k)
+        r += k
+    return (torch.as_tensor(seg_of_row, dtype=torch.int64, device=device),
+            torch.as_tensor(words, device=device))
+
+
+def _perm_loop_host(chunk, jobs, salts, n_pad, lengths, cfg, observed,
+                    device):
     """Early-terminating permutation rounds: host per-draw permutation
     streams, max |T| of the permuted rows on the device."""
     b = max(64, int(cfg.perm_batch))
     seedval = 0 if cfg.seed is None else int(cfg.seed)
-
-    def live(it):
-        return it.decision is None and it.done < cfg.nperm
-
-    while any(live(it) for it in chunk):
-        active = [s for s, it in enumerate(chunk) if live(it)]
-        counts = _alloc_rows(b, active, [cfg.nperm - chunk[s].done for s in active])
+    while any(_live(it, cfg) for it in chunk):
+        ROUNDS["host"] += 1
+        active = [s for s, it in enumerate(chunk) if _live(it, cfg)]
+        counts = _alloc_rows(b, active,
+                             [cfg.nperm - chunk[s].done for s in active])
         w_rows = np.zeros((b, n_pad))
         wx_rows = np.zeros((b, n_pad))
         n_rows = np.zeros(b, dtype=np.int64)
@@ -340,18 +600,37 @@ def _perm_loop(chunk, jobs, salts, n_pad, lengths, cfg, observed, device):
             it = chunk[s]
             it.exceed += int(np.sum(best[row_seg == s] >= observed[id(it)]))
             it.done += counts[pos]
-            if it.exceed >= it.max_ones:
-                it.decision = False  # p > alpha proven: stop early
-            elif it.done >= cfg.nperm:
-                it.decision = True
+            _settle(it, cfg)
     for it in chunk:
         if it.decision is None:
             it.decision = it.exceed < it.max_ones
 
 
-def _segment_jobs(jobs: list, cfg: CBSConfig, device) -> list:
+def _group_items(items, cfg: CBSConfig) -> list:
+    """The (bucket, mode) groups of a level's testable items, largest
+    bucket first: ``[((n_pad, mode), items), ...]``."""
+    groups: dict = {}
+    for it in items:
+        if it.n <= cfg.exact_max:
+            mode = "exact"
+        elif cfg.p_method == "hybrid":
+            mode = "short"
+        else:
+            mode = "thin"
+        groups.setdefault((_bucket(it.n), mode), []).append(it)
+    return sorted(groups.items(), reverse=True)
+
+
+def _segment_jobs(jobs: list, cfg: CBSConfig, device,
+                  device_stream: bool | None = None) -> list:
     """Level-synchronous recursive CBS over many (x, w) float64 value
-    vectors; returns per-job sorted lists of (lo, hi) segment ranges."""
+    vectors; returns per-job sorted lists of (lo, hi) segment ranges.
+
+    ``device_stream`` picks the permutation stream; by default the device
+    stream on CUDA and the host stream on the CPU."""
+    device = torch.device(device)
+    if device_stream is None:
+        device_stream = device.type == "cuda"
     salts = [_job_salt(x, w) for x, w in jobs]
     results = [[] for _ in jobs]
     pending = [_Item(ji, 0, len(x)) for ji, (x, w) in enumerate(jobs) if len(x)]
@@ -364,12 +643,9 @@ def _segment_jobs(jobs: list, cfg: CBSConfig, device) -> list:
                 testable.append(it)
         if not testable:
             break
-        groups: dict = {}
-        for it in testable:
-            mode = "exact" if it.n <= cfg.exact_max else "thin"
-            groups.setdefault((_bucket(it.n), mode), []).append(it)
-        for (n_pad, mode), items in sorted(groups.items(), reverse=True):
-            _decide_group(items, jobs, salts, n_pad, mode, cfg, device)
+        for (n_pad, mode), items in _group_items(testable, cfg):
+            _decide_group(items, jobs, salts, n_pad, mode, cfg, device,
+                          device_stream)
 
         # Locate accepted splits with the exact scan, batched per bucket.
         by_pad: dict = {}
@@ -416,26 +692,51 @@ def _prepare_chromosome(results_r, results_w, c):
 
 def exec_cbs(results_r: list, results_w: list, ref_gender: str,
              binsize: int, cfg: CBSConfig = CBSConfig(),
-             device: torch.device = torch.device("cpu")) -> list:
+             device: torch.device = torch.device("cpu"),
+             _device_stream: bool | None = None) -> list:
     """Segment the per-chromosome log2 ratios.  Returns rows
     ``[chr0, start, end, ratio]`` with 0-based half-open bin ranges and
     4-decimal ratios."""
-    jobs, meta = [], []
-    for c in range(24 if ref_gender == "M" else 23):
-        prep = _prepare_chromosome(results_r, results_w, c)
-        if prep is None:
-            continue
-        y, w, pos, yv, wv = prep
-        jobs.append((yv, wv))
-        meta.append((c, y, w, pos))
-    out = []
-    na_run_threshold = int(2e6 / binsize)
-    for (c, y, w, pos), segments in zip(meta, _segment_jobs(jobs, cfg, device)):
+    return exec_cbs_batch([(results_r, results_w, ref_gender, binsize)], cfg,
+                          device, _device_stream=_device_stream)[0]
+
+
+def exec_cbs_batch(samples: list, cfg: CBSConfig = CBSConfig(),
+                   device: torch.device = torch.device("cpu"),
+                   _device_stream: bool | None = None) -> list:
+    """Segment many samples' genomes in one engine run: every pending
+    segment of every sample joins the same rounds.  ``samples`` holds
+    (results_r, results_w, ref_gender, binsize) tuples; returns one
+    :func:`exec_cbs` row list per sample.  ``_device_stream`` overrides the
+    permutation stream the device picks (for tests and timings)."""
+    jobs, meta = _sample_jobs(samples)
+    all_segments = _segment_jobs(jobs, cfg, device, _device_stream)
+    out = [[] for _ in samples]
+    for (si, c, y, w, pos, binsize), segments in zip(meta, all_segments):
+        na_run_threshold = int(2e6 / binsize)
         for lo, hi in segments:
             s1 = int(pos[lo]) + 1
             e1 = int(pos[hi - 1]) + 1
-            out.extend(_postprocess_segment(c, s1, e1, y, w, na_run_threshold))
+            out[si].extend(
+                _postprocess_segment(c, s1, e1, y, w, na_run_threshold)
+            )
     return out
+
+
+def _sample_jobs(samples: list):
+    """The CBS jobs ((values, weights) per non-empty chromosome) of
+    :func:`exec_cbs_batch`'s samples, and per job (sample, chromosome,
+    ratios, weights, positions of the kept bins, binsize)."""
+    jobs, meta = [], []
+    for si, (results_r, results_w, ref_gender, binsize) in enumerate(samples):
+        for c in range(24 if ref_gender == "M" else 23):
+            prep = _prepare_chromosome(results_r, results_w, c)
+            if prep is None:
+                continue
+            y, w, pos, yv, wv = prep
+            jobs.append((yv, wv))
+            meta.append((si, c, y, w, pos, binsize))
+    return jobs, meta
 
 
 def _postprocess_segment(c, s1, e1, y, w, thresh):

@@ -45,8 +45,7 @@ def median(x, dim=-1):
     return masked_median(x, torch.ones_like(x, dtype=torch.bool), dim=dim)
 
 
-def nanmedian(x):
-    """Median of the non-NaN entries of ``x`` (flattened), averaging the
+def nanmedian(x, dim=-1):
+    """Median of the non-NaN entries of ``x`` along ``dim``, averaging the
     two middles like ``np.nanmedian``; NaN when every entry is NaN."""
-    x = x.reshape(-1)
-    return masked_median(x, ~torch.isnan(x))
+    return masked_median(x, ~torch.isnan(x), dim=dim)

@@ -100,37 +100,42 @@ def sentinel_indexes(
 def normalize_repeat(test_data: torch.Tensor, sentinel_idx: torch.Tensor,
                      ct: int = 0, rounds: int = 3):
     """The reference's three-round z-masked normalization, vectorized
-    over target bins.
+    over target bins, for one sample or a batch of samples.
 
-    ``test_data`` [n]: masked, coverage-normalized, PCA-projected sample;
-    ``sentinel_idx`` int64 [n - ct, k]: global neighbour indexes of the
-    target rows with the distance cutoff folded in as -1.  Bins whose |z|
-    crossed the threshold in an earlier round stop serving as neighbours
-    (they become -1 in ``test_copy``); the targets' own values always come
-    from ``test_data``.
+    ``test_data`` [n] or [c, n]: masked, coverage-normalized, PCA-projected
+    sample(s); ``sentinel_idx`` int64 [n - ct, k]: global neighbour indexes
+    of the target rows with the distance cutoff folded in as -1, shared by
+    the batch.  Bins whose |z| crossed the threshold in an earlier round
+    stop serving as neighbours (they become -1 in ``test_copy``); the
+    targets' own values always come from ``test_data``.
 
-    Returns (z, r, ref_sizes, m_lr, m_z) as tensors on the input device.
+    Returns (z, r, ref_sizes, m_lr, m_z) as tensors on the input device,
+    each with the batch axis of ``test_data`` (m_lr, m_z: one per sample).
     """
-    targets = test_data[ct:]
+    batched = test_data.dim() == 2
+    data = test_data if batched else test_data[None]
+    targets = data[:, ct:]
     m = sentinel_idx.shape[0]
+    block = max(1, NORMALIZE_BLOCK // data.shape[0])
     safe_idx = sentinel_idx.clamp(min=0)
     idx_ok = sentinel_idx >= 0
-    test_copy = test_data.clone()
+    test_copy = data.clone()
     z = r = ref_sizes = None
     for _ in range(rounds):
         means, stds, meds, sizes = [], [], [], []
-        for a in range(0, m, NORMALIZE_BLOCK):
-            b = min(a + NORMALIZE_BLOCK, m)
-            neigh = test_copy[safe_idx[a:b]]
+        for a in range(0, m, block):
+            b = min(a + block, m)
+            neigh = test_copy[:, safe_idx[a:b]]  # [c, block, k]
             valid = idx_ok[a:b] & (neigh >= 0)
             means.append(masked_mean(neigh, valid))
             stds.append(masked_std(neigh, valid))
             meds.append(masked_median(neigh, valid))
-            sizes.append(valid.sum(dim=1))
-        mean, std = torch.cat(means), torch.cat(stds)
+            sizes.append(valid.sum(dim=-1))
+        mean, std = torch.cat(means, dim=1), torch.cat(stds, dim=1)
         z = (targets - mean) / std
-        r = targets / torch.cat(meds)
-        ref_sizes = torch.cat(sizes)
+        r = targets / torch.cat(meds, dim=1)
+        ref_sizes = torch.cat(sizes, dim=1)
         aberrant = torch.abs(z) >= Z_MASK_THRESHOLD  # NaN -> False
-        test_copy[ct:] = torch.where(aberrant, -1.0, test_copy[ct:])
-    return z, r, ref_sizes, nanmedian(torch.log2(r)), nanmedian(z)
+        test_copy[:, ct:] = torch.where(aberrant, -1.0, test_copy[:, ct:])
+    out = (z, r, ref_sizes, nanmedian(torch.log2(r)), nanmedian(z))
+    return out if batched else tuple(t[0] for t in out)
