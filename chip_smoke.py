@@ -7,7 +7,8 @@ Phases, each printing one JSON line on stdout (logs go to stderr):
 
 1. device  -- requires torch.cuda.is_available(); prints the card's name
    and power limit as nvidia-smi reports them;
-2. build   -- compiles the CUDA kernels from wisecondorx_tpu_torch/csrc;
+2. build   -- compiles the CUDA kernels from wisecondorx_tpu_torch/csrc
+   (one nvcc per source, in parallel) and prints each one's ptxas report;
 3. cohort  -- a synthetic cohort at 50 kb bins over the whole genome
    (tests/synthetic.py CohortSim, genome_scale 1.0, ~62k bins), 100 female +
    100 male controls, seed 0, written as convert-stage sample npz files,
@@ -34,9 +35,15 @@ Phases, each printing one JSON line on stdout (logs go to stderr):
 8. kernels -- at the A-pass shape of the reference newref wrote (its mask
    and layout; rows = masked bins, 200 samples): K1 and K2 against their
    plain PyTorch versions on integer-valued inputs, where every distance is
-   exact (tolerance 0), with times; and the stored A-pass neighbours
-   against the exact float64 search of the same PCA-corrected rows
-   (neighbour-set agreement, mean >= 99.9 %, min >= 299 of 300).
+   exact (tolerance 0), and K2 bit for bit on its edge fixtures
+   (:func:`k2_edge_cases`); each kernel's time beside its plain version's,
+   its bound (the larger of its operations at the TF32 peak and its bytes
+   at the memory rate) and a library yardstick timed here and used nowhere
+   in the port (``torch.topk`` of the pool for K2; for K1, which no single
+   call matches, ``torch.mm`` of its product in full fp32); and the stored
+   A-pass neighbours against the exact float64 search of the same
+   PCA-corrected rows (neighbour-set agreement, mean >= 99.9 %, min >= 299
+   of 300; median distance relative error <= 1e-6).
 
 The kernels' launch counters are set to 0 just before newref and read just
 after predict: both kernels must have run on that path (predict-batch runs
@@ -74,6 +81,15 @@ INT_SENTINEL_PER_SAMPLE = 10.5
 #: The plate's 10 Mb deletion: chr5 bins [1000, 1200) at 50 kb.
 DELETION = (1000, 1200)
 PLATE_EUPLOID = 19
+#: The stored A-pass distances against the exact float64 ones: median
+#: relative error at most this (the 3xTF32 products keep fp32 accuracy).
+MAX_DIST_REL_ERR = 1e-6
+#: Published H100 SXM peaks at 700 W (NVIDIA's data sheet): TF32 tensor
+#: cores, dense, and device memory.
+H100_TF32_FLOPS = 495e12
+H100_BYTES_PER_S = 3.35e12
+#: K2's edge fixtures: rows of pools of 64 buckets x 4 deep, k = 100.
+EDGE_ROWS, EDGE_LANES, EDGE_DEPTH, EDGE_K = 8, 64, 4, 100
 
 
 def emit(phase, **fields):
@@ -115,15 +131,23 @@ def phase_device():
 
 
 def phase_build():
+    """Builds the kernels (one nvcc per source, in parallel) and prints each
+    source's ptxas report: registers, shared memory, spills.  Returns the
+    reports by source file name."""
     from wisecondorx_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
     path = _build.build()
     _build.load()
-    ptxas = [ln.split("ptxas info    : ")[1] for ln in _build.build_log.splitlines()
-             if "Used" in ln]
+    ptxas = {}
+    for src, log in sorted(_build.build_logs.items()):
+        lines = [ln.replace("ptxas info    :", "").strip() for ln in log.splitlines()
+                 if "Used" in ln or "spill" in ln]
+        ptxas[src] = "; ".join(lines)
+        print(f"ptxas {src}: {ptxas[src]}", flush=True)
     emit("build", seconds=round(time.perf_counter() - t0, 3),
          library=os.path.relpath(path, REPO), ptxas=ptxas)
+    return ptxas
 
 
 def save_sample(path, sample):
@@ -522,9 +546,71 @@ def a_pass(samples, ref, device):
     return ref_a, ml, corrected
 
 
+def k2_edge_cases(seed=SEED):
+    """K2's edge fixtures as numpy arrays, [(name, vals f32 [rows, pool],
+    idx i32 [rows, pool], drop f32 [rows, lanes], k)], pools of
+    EDGE_LANES x EDGE_DEPTH = 256 entries, unfilled slots +inf with index
+    -1 as K1 leaves them, and the first row's drops all +inf:
+
+    * ``negative``: standard normal values, half of them negative (the
+      norm trick gives slightly negative distances between near-identical
+      bins);
+    * ``signed_zero``: 40 values -1, 120 zeros of random sign and the rest 1,
+      so the k-th value (k = 100) lies among the zeros, where -0.0 and +0.0
+      must tie and go by pool position;
+    * ``ties_at_k``: integers 0-9, so a run of equal values straddles the
+      k-th;
+    * ``all_inf``: every slot unfilled;
+    * ``short_pool``: 50 finite values, fewer than k, with finite drops on
+      all rows but the first, which must be flagged;
+    * ``k_equals_pool``: normal values with k = the whole pool.
+    """
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    rows, lanes = EDGE_ROWS, EDGE_LANES
+    pool = lanes * EDGE_DEPTH
+
+    def case(name, vals, k=EDGE_K):
+        vals = np.asarray(vals, np.float32)
+        idx = np.stack([rng.permutation(10 * pool)[:pool] for _ in range(rows)])
+        idx = np.where(np.isinf(vals), -1, idx).astype(np.int32)
+        drop = rng.normal(1.5, 1.0, (rows, lanes)).astype(np.float32)
+        drop[0] = np.inf
+        return name, vals, idx, drop, k
+
+    def shuffled(parts):
+        return np.stack([rng.permutation(np.concatenate(parts)) for _ in range(rows)])
+
+    signs = np.where(rng.random((rows, 120)) < 0.5, -1.0, 1.0)
+    zeros = np.stack([rng.permutation(np.concatenate(
+        [np.full(40, -1.0), signs[r] * 0.0, np.ones(pool - 160)])) for r in range(rows)])
+    return [
+        case("negative", rng.normal(0.0, 1.0, (rows, pool))),
+        case("signed_zero", zeros),
+        case("ties_at_k", rng.integers(0, 10, (rows, pool))),
+        case("all_inf", np.full((rows, pool), np.inf)),
+        case("short_pool", shuffled([rng.normal(0.0, 1.0, 50), np.full(pool - 50, np.inf)])),
+        case("k_equals_pool", rng.normal(0.0, 1.0, (rows, pool)), k=pool),
+    ]
+
+
+def _bound(ops, nbytes):
+    """(bound_ms, bound_by): the larger of the operations at the TF32
+    tensor-core peak and the bytes at the memory rate."""
+    ops_ms, bytes_ms = ops / H100_TF32_FLOPS * 1e3, nbytes / H100_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def _nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def phase_kernels(samples, ref, device):
-    """K1/K2 against their plain versions, and the stored neighbours
-    against the exact float64 search, at the A-pass shape."""
+    """K1/K2 against their plain versions (and K2 on its edge fixtures),
+    each with its time, its bound and its library yardstick; and the
+    stored neighbours against the exact float64 search, at the A-pass
+    shape."""
     import numpy as np
     import torch
 
@@ -567,6 +653,11 @@ def phase_kernels(samples, ref, device):
     k1_plain_ms = cuda_ms(
         lambda: knn_cuda.bucket_scan_reference(*args, lanes=lanes, depth=depth)
     )
+    # K1's yardstick: the bare product of its distances in full fp32 (no
+    # single call computes the distances and their bucketed top-M).
+    torch.backends.cuda.matmul.allow_tf32 = False
+    k1_product_ms = cuda_ms(lambda: torch.mm(cand[:r], cand.T))
+    k1_bound = _bound(3 * 2 * r * n * s, _nbytes(*args[:8], *got))
     top = knn_cuda.extract_topk(*got, REFSIZE)
     top_ref = knn_cuda.extract_topk_reference(*want, REFSIZE)
     torch.cuda.synchronize()
@@ -577,6 +668,10 @@ def phase_kernels(samples, ref, device):
     k2_err = _max_abs(top[0], top_ref[0])
     k2_ms = cuda_ms(lambda: knn_cuda.extract_topk(*got, REFSIZE))
     k2_plain_ms = cuda_ms(lambda: knn_cuda.extract_topk_reference(*want, REFSIZE))
+    k2_topk_ms = cuda_ms(lambda: torch.topk(got[0], REFSIZE, dim=1, largest=False))
+    # Each pool value and drop read once, the k chosen indexes, the outputs.
+    k2_bound = _bound(0, _nbytes(got[0], got[2], top[1], *top))
+    edges = k2_edges(device)
     del got, want, top, top_ref, args, cand
 
     # The kernel search and the exact float64 search of the A pass, timed;
@@ -607,13 +702,39 @@ def phase_kernels(samples, ref, device):
         flagged_rows=stats["flagged_rows"],
         rerun_share=stats["flagged_rows"] / stats["n_rows"],
         search_s=round(search_s, 4), exact_f64_s=round(exact_s, 4),
-        k1_ms=k1_ms, k1_plain_ms=k1_plain_ms, k2_ms=k2_ms,
-        k2_plain_ms=k2_plain_ms,
+        chunk_rows=r, k1_ms=k1_ms, k1_plain_ms=k1_plain_ms,
+        k1_product_ms=k1_product_ms, k1_bound_ms=k1_bound[0],
+        k1_bound_by=k1_bound[1],
+        k1_library="none: no single call computes distance + bucketed top-M",
+        k2_ms=k2_ms, k2_plain_ms=k2_plain_ms, k2_topk_ms=k2_topk_ms,
+        k2_bound_ms=k2_bound[0], k2_bound_by=k2_bound[1], k2_edges=edges,
     )
     emit("kernels", **result)
     if agree.mean() < MEAN_AGREE or agree.min() < MIN_AGREE:
         raise AssertionError(f"neighbour agreement below the bar: {result}")
+    if not rel.median() <= MAX_DIST_REL_ERR:
+        raise AssertionError(f"median distance error above {MAX_DIST_REL_ERR}: {result}")
     return result, k1_err, k2_err
+
+
+def k2_edges(device):
+    """K2 against its plain version on each edge fixture, bit for bit
+    (values, indexes and flags).  Returns {name: rows flagged}."""
+    import torch
+
+    from wisecondorx_tpu_torch.ops import knn_cuda
+
+    out = {}
+    for name, *arrays, k in k2_edge_cases():
+        args = [torch.as_tensor(a, device=device) for a in arrays]
+        got = knn_cuda.extract_topk(*args, k)
+        want = knn_cuda.extract_topk_reference(*args, k)
+        torch.cuda.synchronize()
+        if not (torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+                and torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])):
+            raise AssertionError(f"K2 differs from extract_topk_reference on {name}")
+        out[name] = int(got[2].sum())
+    return out
 
 
 def _max_abs(a, b):
@@ -641,11 +762,9 @@ def main():
     device = phase_device()
     import torch
 
-    from wisecondorx_tpu_torch.ops import knn_cuda
+    from wisecondorx_tpu_torch.ops import cbs, knn_cuda
 
-    from wisecondorx_tpu_torch.ops import cbs
-
-    phase_build()
+    ptxas = phase_build()
     samples, files, t21, euploid, plate = make_cohort()
 
     knn_cuda.reset_launch_counts()
@@ -672,12 +791,17 @@ def main():
          "source": "wisecondorx_tpu_torch/csrc/knn_bucket.cu",
          "replaces": "wisecondorx_tpu/ops/knn_pallas.py:54",
          "launches": launches["knn_bucket"], "max_abs_err": k1_err,
-         "ms": result["k1_ms"], "plain_ms": result["k1_plain_ms"]},
+         "ms": result["k1_ms"], "plain_ms": result["k1_plain_ms"],
+         "bound_ms": result["k1_bound_ms"], "bound_by": result["k1_bound_by"],
+         "library_ms": None, "product_ms": result["k1_product_ms"],
+         "ptxas": ptxas.get("knn_bucket.cu")},
         {"name": "knn_topk", "route": "cuda",
          "source": "wisecondorx_tpu_torch/csrc/knn_topk.cu",
          "replaces": "wisecondorx_tpu/ops/knn_pallas.py:228",
          "launches": launches["knn_topk"], "max_abs_err": k2_err,
-         "ms": result["k2_ms"], "plain_ms": result["k2_plain_ms"]},
+         "ms": result["k2_ms"], "plain_ms": result["k2_plain_ms"],
+         "bound_ms": result["k2_bound_ms"], "bound_by": result["k2_bound_by"],
+         "library_ms": result["k2_topk_ms"], "ptxas": ptxas.get("knn_topk.cu")},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

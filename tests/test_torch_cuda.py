@@ -1,13 +1,15 @@
 """The CUDA kernels of the PyTorch port on the card: each against its plain
 PyTorch version on the same CUDA tensors.  Marked ``cuda``; each test
 skips where no CUDA device is present.  On a machine with an NVIDIA
-Hopper GPU and nvcc: ``python -m pytest -m cuda tests/test_torch_cuda.py``.
+Hopper GPU and nvcc, which has no JAX for tests/conftest.py:
+``PYTHONPATH=tests python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``.
 """
 
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from torch_parity import layout
 from wisecondorx_tpu_torch.ops import knn as tknn
 from wisecondorx_tpu_torch.ops import knn_cuda
@@ -61,6 +63,17 @@ def test_k1_k2_equal_plain_versions(dev, sentinel):
         assert torch.equal(g2[0], w2[0]) and torch.equal(g2[2], w2[2])
         finite = torch.isfinite(g2[0])
         assert torch.equal(g2[1][finite], w2[1][finite])
+
+
+@pytest.mark.parametrize("case", chip_smoke.k2_edge_cases(), ids=lambda c: c[0])
+def test_k2_equals_plain_version_at_the_edges(dev, case):
+    _, *arrays, k = case
+    args = [torch.as_tensor(a, device=dev) for a in arrays]
+    got = knn_cuda.extract_topk(*args, k)
+    want = knn_cuda.extract_topk_reference(*args, k)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
 
 
 def test_search_agrees_with_exact_float64(dev):

@@ -1,19 +1,39 @@
-"""The PyTorch port imports with jax, scikit-learn and matplotlib absent
-(the machine with the GPU has none of them).  Runs in a subprocess:
-tests/conftest.py has already imported jax into this one."""
+"""The PyTorch port imports with jax, scikit-learn, matplotlib and the JAX
+package itself absent (the machine with the GPU has none of the first
+three, and the port keeps its own copies of the host modules it needs).
 
-import os
+* a subprocess imports every module of the port with those packages
+  blocked (tests/conftest.py has already imported jax into this process);
+* an AST scan finds no ``import`` of ``wisecondorx_tpu`` anywhere in the
+  port or in chip_smoke.py, including imports inside functions, which the
+  subprocess only reaches when they run.
+"""
+
+import ast
+import pathlib
 import subprocess
 import sys
+
+import pytest
 
 PORT_MODULES = [
     "wisecondorx_tpu_torch",
     "wisecondorx_tpu_torch.device",
     "wisecondorx_tpu_torch.cli",
+    "wisecondorx_tpu_torch.errors",
+    "wisecondorx_tpu_torch.genome",
+    "wisecondorx_tpu_torch.ref_qc",
+    "wisecondorx_tpu_torch.io",
+    "wisecondorx_tpu_torch.io.npz",
+    "wisecondorx_tpu_torch.io.bam",
+    "wisecondorx_tpu_torch.output",
+    "wisecondorx_tpu_torch.output.tables",
     "wisecondorx_tpu_torch.ops._build",
     "wisecondorx_tpu_torch.ops.common",
     "wisecondorx_tpu_torch.ops.knn",
     "wisecondorx_tpu_torch.ops.knn_cuda",
+    "wisecondorx_tpu_torch.ops.mask",
+    "wisecondorx_tpu_torch.ops.stats",
     "wisecondorx_tpu_torch.ops.pca",
     "wisecondorx_tpu_torch.ops.gmm",
     "wisecondorx_tpu_torch.ops.normalize",
@@ -26,13 +46,14 @@ PORT_MODULES = [
     "wisecondorx_tpu_torch.utils.log",
 ]
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+REPO = pathlib.Path(__file__).resolve().parent.parent
+BLOCKED = ("jax", "jaxlib", "sklearn", "matplotlib", "wisecondorx_tpu")
 
 
 def test_port_imports_without_jax_sklearn_matplotlib():
     code = (
         "import sys\n"
-        "for m in ('jax', 'jaxlib', 'sklearn', 'matplotlib'):\n"
+        f"for m in {BLOCKED!r}:\n"
         "    sys.modules[m] = None\n"
         "import importlib\n"
         f"for m in {PORT_MODULES!r}:\n"
@@ -48,3 +69,47 @@ def test_port_imports_without_jax_sklearn_matplotlib():
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+def _imported_modules(tree):
+    """Every module name an import statement (at any depth) or a literal
+    ``importlib.import_module`` / ``__import__`` call of ``tree`` names."""
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
+            yield node.module
+        elif (isinstance(node, ast.Call) and node.args
+              and isinstance(node.args[0], ast.Constant)
+              and isinstance(node.args[0].value, str)
+              and getattr(node.func, "attr", getattr(node.func, "id", None))
+              in ("import_module", "__import__")):
+            yield node.args[0].value
+
+
+PORT_FILES = sorted(
+    str(p.relative_to(REPO))
+    for p in (REPO / "wisecondorx_tpu_torch").rglob("*.py")
+) + ["chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", PORT_FILES)
+def test_port_file_imports_nothing_of_the_jax_package(path):
+    tree = ast.parse((REPO / path).read_text(), filename=path)
+    bad = [m for m in _imported_modules(tree)
+           if m == "wisecondorx_tpu" or m.startswith("wisecondorx_tpu.")]
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_import_scan_sees_nested_imports():
+    tree = ast.parse(
+        "def f():\n"
+        "    from wisecondorx_tpu.io import npz\n"
+        "    import wisecondorx_tpu.genome as g\n"
+        "    importlib.import_module('wisecondorx_tpu.ref_qc')\n"
+        "from wisecondorx_tpu_torch import genome\n"
+    )
+    assert sorted(_imported_modules(tree)) == [
+        "wisecondorx_tpu.genome", "wisecondorx_tpu.io",
+        "wisecondorx_tpu.ref_qc", "wisecondorx_tpu_torch",
+    ]

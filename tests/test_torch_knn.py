@@ -7,6 +7,8 @@
   kernels run in interpret mode, at the small geometry of
   tests/test_knn_pallas.py, on integer-valued float32 inputs, where every
   distance is exact: pools, drops and flags must be equal;
+* the plain K2 at its edges (negative values, -0.0 beside +0.0, ties at
+  the k-th value, unfilled and short pools) against a Python sort;
 * the kernel wrapper's collision-and-rerun path (plain versions on CPU);
 * the null ratios (rtol 1e-12), including the -1 wraparound.
 """
@@ -16,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from torch_parity import layout, t64
 from wisecondorx_tpu.ops import knn as jknn
 from wisecondorx_tpu.ops import knn_pallas as jpallas
@@ -131,6 +134,34 @@ def test_flag_catches_overflow_with_short_pool():
     drop = torch.tensor([[3.0, torch.inf]])
     _, _, flagged = knn_cuda.extract_topk(vals, idx, drop, 3)
     assert flagged.tolist() == [True]
+
+
+@pytest.mark.parametrize("case", chip_smoke.k2_edge_cases(), ids=lambda c: c[0])
+def test_plain_k2_at_the_edges(case):
+    """The contract K2 must meet on the card, where chip_smoke.py holds the
+    kernel bit for bit to this plain version on the same fixtures: the k
+    smallest in ascending order, equal values -- -0.0 beside +0.0 included
+    -- by lowest pool position, the pool's own values (zero's sign kept)
+    and indexes, and the flag rule."""
+    name, vals, idx, drop, k = case
+    top_v, top_i, flagged = knn_cuda.extract_topk(
+        *(torch.as_tensor(a) for a in (vals, idx, drop)), k
+    )
+    for r in range(vals.shape[0]):
+        order = sorted(range(vals.shape[1]), key=lambda p: (vals[r, p], p))[:k]
+        kept = vals[r, order]
+        np.testing.assert_array_equal(top_v[r].numpy().view(np.int32),
+                                      kept.view(np.int32))
+        np.testing.assert_array_equal(top_i[r].numpy(), idx[r, order])
+        fin = kept[np.isfinite(kept)]
+        tau = fin.max() if fin.size else -np.inf
+        md = drop[r].min()
+        want = bool(np.isfinite(md) and (md <= tau or fin.size < k))
+        assert bool(flagged[r]) == want, r
+    if name == "short_pool":
+        assert flagged[1:].all() and not flagged[0]
+    if name == "signed_zero":
+        assert (np.signbit(top_v.numpy()) & (top_v.numpy() == 0)).any()
 
 
 def test_collision_rerun_recovers_exact_neighbours():

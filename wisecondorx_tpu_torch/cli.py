@@ -3,10 +3,10 @@
 ``convert``, ``newref``, ``predict --bed``, ``predict-batch --bed`` and
 ``gender`` take the JAX CLI's flags and read and write the same ``.npz``
 schemas; the device stages add ``--device {cuda,cpu}`` (default ``cuda``,
-which fails when no CUDA device is present).  ``convert`` runs the shared
-host reader and touches no device.  What the port does not carry yet --
-``--plot``, ``--plotyfrac`` and ``--checkpoint-dir`` -- exits non-zero with
-a message naming the JAX CLI (``wisecondorx-tpu``).
+which fails when no CUDA device is present).  ``convert`` runs the port's
+copy of the native BAM/CRAM reader and touches no device.  What the port
+does not carry yet -- ``--plot``, ``--plotyfrac`` and ``--checkpoint-dir``
+-- exits non-zero with a message naming the JAX CLI (``wisecondorx-tpu``).
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-from wisecondorx_tpu.io.npz import load_sample_npz
+from wisecondorx_tpu_torch.io.npz import load_sample_npz
 from wisecondorx_tpu_torch.utils.log import setup_logging, stage_timer
 
 
@@ -31,8 +31,8 @@ def _not_ported(what: str):
 
 
 def tool_convert(args):
-    from wisecondorx_tpu.io.bam import convert_reads
-    from wisecondorx_tpu.io.npz import save_sample_npz
+    from wisecondorx_tpu_torch.io.bam import convert_reads
+    from wisecondorx_tpu_torch.io.npz import save_sample_npz
 
     logging.info("Starting conversion")
     sample, qual_info = convert_reads(
@@ -44,12 +44,12 @@ def tool_convert(args):
 
 
 def tool_newref(args):
-    from wisecondorx_tpu.io.npz import (
+    from wisecondorx_tpu_torch.io.npz import (
         _savez_fast,
         flatten_reference,
         verify_reference_npz,
     )
-    from wisecondorx_tpu.ref_qc import qc_reference_arrays
+    from wisecondorx_tpu_torch.ref_qc import qc_reference_arrays
     from wisecondorx_tpu_torch.device import resolve_device
     from wisecondorx_tpu_torch.models.reference import (
         NewrefConfig,
@@ -125,7 +125,7 @@ def _predict_config(args):
 
 
 def tool_test(args):
-    from wisecondorx_tpu.output.tables import generate_output_tables
+    from wisecondorx_tpu_torch.output.tables import generate_output_tables
     from wisecondorx_tpu_torch.device import resolve_device
     from wisecondorx_tpu_torch.models.predictor import PredictError, predict
     from wisecondorx_tpu_torch.models.ref_loader import ReferenceLoader
@@ -156,8 +156,8 @@ def tool_test_batch(args):
     import pickle
     import zipfile
 
-    from wisecondorx_tpu.errors import UserInputError
-    from wisecondorx_tpu.output.tables import generate_output_tables
+    from wisecondorx_tpu_torch.errors import UserInputError
+    from wisecondorx_tpu_torch.output.tables import generate_output_tables
     from wisecondorx_tpu_torch.device import resolve_device
     from wisecondorx_tpu_torch.models.predictor import (
         PredictError,
@@ -318,7 +318,7 @@ def main(argv=None):
     import pickle
     import zipfile
 
-    from wisecondorx_tpu.errors import UserInputError
+    from wisecondorx_tpu_torch.errors import UserInputError
 
     try:
         args.func(args)

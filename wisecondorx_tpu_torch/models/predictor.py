@@ -17,9 +17,9 @@ import warnings
 import numpy as np
 import torch
 
-from wisecondorx_tpu.errors import UserInputError
-from wisecondorx_tpu.genome import GenomeLayout, MaskedLayout
-from wisecondorx_tpu.io.npz import gender_correct, scale_sample
+from wisecondorx_tpu_torch.errors import UserInputError
+from wisecondorx_tpu_torch.genome import GenomeLayout, MaskedLayout
+from wisecondorx_tpu_torch.io.npz import gender_correct, scale_sample
 from wisecondorx_tpu_torch.models.ref_loader import (
     DeviceReference,
     PassTables,
@@ -66,7 +66,7 @@ class PredictConfig:
 @dataclasses.dataclass
 class BinResults:
     """Per-bin results on the full bin axis, split per chromosome (the
-    layout the shared ``output.tables`` writers read)."""
+    layout the ``output.tables`` writers read)."""
 
     results_r: list
     results_z: list
@@ -281,7 +281,7 @@ def segment_bins_batch(all_bins: list, cfg: PredictConfig,
     segment of every sample joins the same permutation rounds.  Returns one
     :func:`segment_bins` row list per sample.  ``_device_stream`` overrides
     the permutation stream the device picks (see ``ops.cbs``)."""
-    from wisecondorx_tpu.ops import stats as stats_ops
+    from wisecondorx_tpu_torch.ops import stats as stats_ops
     from wisecondorx_tpu_torch.ops import cbs as cbs_ops
 
     with stage_timer("predict.cbs"):
@@ -338,7 +338,7 @@ def _log_trans(per_chr_r, per_chr_z, per_chr_w, per_chr_nr, m_lr):
 def _apply_blacklist(results, blacklist_path, binsize):
     """Zero r/z/w over blacklisted regions; malformed rows raise
     BedParseError with file:line."""
-    from wisecondorx_tpu.errors import BedParseError
+    from wisecondorx_tpu_torch.errors import BedParseError
 
     out_r, out_z, out_w, _ = results
     for lineno, line in enumerate(open(blacklist_path), 1):

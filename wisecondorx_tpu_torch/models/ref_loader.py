@@ -34,8 +34,8 @@ from concurrent.futures import Future, ThreadPoolExecutor
 import numpy as np
 import torch
 
-from wisecondorx_tpu.genome import GenomeLayout, MaskedLayout
-from wisecondorx_tpu.io.npz import (
+from wisecondorx_tpu_torch.genome import GenomeLayout, MaskedLayout
+from wisecondorx_tpu_torch.io.npz import (
     load_member_rows,
     load_reference_npz,
     load_reference_small,

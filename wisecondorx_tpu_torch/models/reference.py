@@ -20,10 +20,10 @@ import logging
 import numpy as np
 import torch
 
-from wisecondorx_tpu.errors import UserInputError
-from wisecondorx_tpu.genome import LAST_CHR, MaskedLayout, samples_to_matrix
-from wisecondorx_tpu.io.npz import gender_correct, scale_sample
-from wisecondorx_tpu.ops import mask as mask_ops
+from wisecondorx_tpu_torch.errors import UserInputError
+from wisecondorx_tpu_torch.genome import LAST_CHR, MaskedLayout, samples_to_matrix
+from wisecondorx_tpu_torch.io.npz import gender_correct, scale_sample
+from wisecondorx_tpu_torch.ops import mask as mask_ops
 from wisecondorx_tpu_torch.device import work_dtype
 from wisecondorx_tpu_torch.ops import knn as knn_ops
 from wisecondorx_tpu_torch.ops import normalize as norm_ops

@@ -3,9 +3,11 @@
 The ``.cu`` sources are compiled on first use with ``nvcc`` for
 ``sm_90a`` into one shared library with a plain C interface, which is
 loaded with ``ctypes`` (no PyTorch headers: a build takes seconds, not
-minutes).  The library lands in ``build/wcx_torch_kernels/`` beside the
-package, named by a hash of the sources and flags, so an edited source
-rebuilds and an unchanged one is reused.  Nothing here runs at import.
+minutes).  Each source gets its own ``nvcc``, all started together, and
+one more links the objects.  The library lands in
+``build/wcx_torch_kernels/`` beside the package, named by a hash of the
+sources and flags, so an edited source rebuilds and an unchanged one is
+reused.  Nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -22,15 +24,16 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "wcx_torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
-#: nvcc's output of the build this process made (ptxas register and
-#: shared-memory report), or "" when the library was already built.
-build_log = ""
+#: nvcc's output of the build this process made, by source file name (the
+#: ptxas register, shared-memory and spill report of its kernels); empty
+#: when the library was already built.
+build_logs: dict[str, str] = {}
 
 
 def _sources() -> list[Path]:
@@ -59,25 +62,37 @@ def library_path() -> Path:
 def build() -> Path:
     """Compile the kernels unless this exact build exists; returns the
     library's path.  Raises on a compiler error with nvcc's output."""
-    global build_log
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(s) for s in _sources() if s.suffix == ".cu"]
-    with tempfile.NamedTemporaryFile(
-        dir=BUILD_DIR, suffix=".so", delete=False
-    ) as tmp:
-        tmp_path = tmp.name
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp_path, *cu],
-        capture_output=True, text=True,
-    )
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp_path)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-    os.replace(tmp_path, out)  # atomic: a concurrent loader never sees half a file
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        cu = [s for s in _sources() if s.suffix == ".cu"]
+        objs = [os.path.join(tmp, s.stem + ".o") for s in cu]
+        procs = [
+            subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", o, str(s)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            for s, o in zip(cu, objs)
+        ]
+        failed = []
+        for s, p in zip(cu, procs):
+            build_logs[s.name] = p.communicate()[0]
+            if p.returncode != 0:
+                failed.append(f"{s.name} ({p.returncode}):\n{build_logs[s.name]}")
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        lib = os.path.join(tmp, "lib.so")
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", lib, *objs], capture_output=True, text=True,
+        )
+        if link.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed ({link.returncode}):\n{link.stdout}{link.stderr}"
+            )
+        os.replace(lib, out)  # atomic: a concurrent loader never sees half a file
     return out
 
 
@@ -95,7 +110,8 @@ def load() -> ctypes.CDLL:
             lib.wcx_knn_topk.argtypes = [p, p, p, i, i, i, i, p, p, p, p]
             lib.wcx_knn_topk.restype = i
             for name in ("wcx_knn_bucket_depth", "wcx_knn_bucket_col_tile",
-                         "wcx_knn_bucket_k_chunk"):
+                         "wcx_knn_bucket_k_chunk", "wcx_knn_bucket_max_s_pad",
+                         "wcx_knn_topk_pool_max"):
                 getattr(lib, name).argtypes = []
                 getattr(lib, name).restype = i
             _lib = lib

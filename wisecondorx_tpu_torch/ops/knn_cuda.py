@@ -44,8 +44,8 @@ DEPTH = 4
 #: (8192 rows = 512 MB at L*M = 8192).
 ROW_CHUNK = 8192
 
-#: Sample-axis padding of the candidates: K1's shared-memory slice depth
-#: (KC in csrc/knn_bucket.cu).
+#: Sample-axis padding of the candidates: K1's streamed slice depth (KC in
+#: csrc/knn_bucket.cu).
 S_MULTIPLE = 32
 
 #: Launches of each kernel since the last :func:`reset_launch_counts`.
@@ -134,6 +134,7 @@ def bucket_scan(rows, rnorm, rchr, rstart, rsize, cand, cnorm, cchr,
             f"K1 is compiled for depth {lib.wcx_knn_bucket_depth()}, got {depth}"
         )
     ct, kc = lib.wcx_knn_bucket_col_tile(), lib.wcx_knn_bucket_k_chunk()
+    max_s_pad = lib.wcx_knn_bucket_max_s_pad()
     r, s_pad = rows.shape
     n_pad = cand.shape[0]
     if lanes % ct or n_pad % lanes or s_pad % kc:
@@ -141,8 +142,15 @@ def bucket_scan(rows, rnorm, rchr, rstart, rsize, cand, cnorm, cchr,
             f"K1 needs lanes % {ct} == 0, n_pad % lanes == 0 and "
             f"s_pad % {kc} == 0 (lanes={lanes}, n_pad={n_pad}, s_pad={s_pad})"
         )
-    if n_pad >= 2**31:
-        raise ValueError("K1 indexes candidates with int32")
+    if s_pad > max_s_pad:
+        raise ValueError(
+            f"K1 keeps its row tile in shared memory: s_pad {s_pad} > {max_s_pad}"
+        )
+    if n_pad >= 2**31 or n_pad // lanes >= 0xFFFF:
+        raise ValueError("K1 indexes candidates with int32 and column "
+                         "blocks with 16 bits")
+    if rows.data_ptr() % 16 or cand.data_ptr() % 16:
+        raise ValueError("K1 reads rows and cand with 16-byte copies")
     dev = rows.device
     f32, i32 = torch.float32, torch.int32
     _check(rows, "rows", f32, (r, s_pad), dev)
@@ -206,8 +214,15 @@ def extract_topk(vals, idx, drop, ref_size: int):
     lanes = drop.shape[1]
     if not 0 < ref_size <= pool:
         raise ValueError(f"ref_size {ref_size} must be in [1, pool={pool}]")
-    if pool > 16384:
-        raise ValueError(f"K2 sorts the pool in shared memory; {pool} > 16384")
+    pool_max = lib.wcx_knn_topk_pool_max()
+    if pool > pool_max or pool % 4 or lanes % 4:
+        raise ValueError(
+            f"K2 holds a row in registers with 16-byte loads: needs pool <= "
+            f"{pool_max}, pool % 4 == 0 and lanes % 4 == 0 (pool={pool}, "
+            f"lanes={lanes})"
+        )
+    if vals.data_ptr() % 16 or drop.data_ptr() % 16:
+        raise ValueError("K2 reads vals and drop with 16-byte loads")
     dev = vals.device
     _check(vals, "vals", torch.float32, (r, pool), dev)
     _check(idx, "idx", torch.int32, (r, pool), dev)

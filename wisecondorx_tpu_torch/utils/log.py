@@ -1,9 +1,9 @@
 """Logging and per-stage timing for the port.
 
-Counterpart of wisecondorx_tpu/utils/log.py with the same log format and
-``[timing]`` lines.  Each stage also runs under
-``torch.profiler.record_function``, so its ops are attributable inside a
-``torch.profiler`` trace; the JAX package's profiler hooks are not used.
+Counterpart of wisecondorx_tpu/utils/log.py with the same log format (the
+reference tool's, main.py:492-496) and ``[timing]`` lines.  Each stage also
+runs under ``torch.profiler.record_function``, so its ops are attributable
+inside a ``torch.profiler`` trace.
 """
 
 from __future__ import annotations
@@ -15,7 +15,17 @@ import time
 
 import torch
 
-from wisecondorx_tpu.utils.log import setup_logging  # noqa: F401  (re-export)
+LOG_FORMAT = "[%(levelname)s - %(asctime)s]: %(message)s"
+DATE_FORMAT = "%Y-%m-%d %H:%M:%S"
+
+
+def setup_logging(loglevel: str = "INFO") -> None:
+    logging.basicConfig(
+        format=LOG_FORMAT,
+        datefmt=DATE_FORMAT,
+        level=getattr(logging, loglevel.upper(), logging.INFO),
+    )
+
 
 _STAGE_TIMES: dict[str, float] = {}
 _TIMES_LOCK = threading.Lock()
