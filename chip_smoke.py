@@ -43,12 +43,33 @@ Phases, each printing one JSON line on stdout (logs go to stderr):
    call matches, ``torch.mm`` of its product in full fp32); and the stored
    A-pass neighbours against the exact float64 search of the same
    PCA-corrected rows (neighbour-set agreement, mean >= 99.9 %, min >= 299
-   of 300; median distance relative error <= 1e-6).
+   of 300; median distance relative error <= 1e-6);
+9. checkpoint -- newref with ``--checkpoint-dir``, stopped in process right
+   after it saves its first ``knn_A_*`` artifact (``NewrefCheckpoint.save``
+   patched), then run again: it resumes, writes a reference equal in every
+   member to the newref phase's, removes the directory, and launches K1
+   fewer times than the full build;
+10. multidevice -- ``knn_search_multidevice`` on the A pass and
+   ``predict_batch`` on the plate with the card listed twice (two parts,
+   two host threads): equal bit for bit to one device;
+11. multiproc -- newref and predict-batch as two worker processes on the
+   one card, each with torchrun's environment on 127.0.0.1 and a timeout:
+   process 0's reference equals the newref phase's in every member, both
+   processes launched both kernels, and the two plate shards together
+   write every sample's outputs byte-equal to the predict_batch phase's;
+12. wide -- newref through the CLI on 720 controls (360 F + 360 M) at 50
+   kb, genome_scale 0.25, so the A pass's s_pad (736) is above the 672 at
+   which K1 streams its rows; its stored neighbours meet the bar of phase 8
+   against the exact float64 search; and K1 against its plain version
+   (exact) at the A-pass row-chunk shape with 1,000 and 4,096 samples, each
+   timed beside its bound.
 
 The kernels' launch counters are set to 0 just before newref and read just
 after predict: both kernels must have run on that path (predict-batch runs
-no KNN kernel).  Then one JSON line
-lists the kernels, and the last line is
+no KNN kernel).  Each later path that searches (the resumed newref, the
+two-device search, each worker's newref, the wide newref) is read the same
+way and must have launched both kernels too.  Then one JSON line lists the
+kernels (K1 with its wide-shape times), and the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failure raises, and the script exits non-zero without that line.  It
 writes only under build/chip_smoke/ in the checkout.
@@ -90,6 +111,17 @@ H100_TF32_FLOPS = 495e12
 H100_BYTES_PER_S = 3.35e12
 #: K2's edge fixtures: rows of pools of 64 buckets x 4 deep, k = 100.
 EDGE_ROWS, EDGE_LANES, EDGE_DEPTH, EDGE_K = 8, 64, 4, 100
+#: The wide cohort: 720 controls put the A pass's sample axis (s_pad 736)
+#: above the 672 at which K1 stops keeping its row tile resident.
+WIDE_FEMALE = WIDE_MALE = 360
+WIDE_GENOME_SCALE = 0.25
+#: Sample axes at which K1 is held to its plain version on the streamed
+#: path, at the A-pass row-chunk shape.
+WIDE_K1_SAMPLES = (1000, 4096)
+#: Seconds each worker process of the multiproc phase may take.
+WORKER_TIMEOUT = 400
+#: The --device of every CLI call and worker.
+CLI_DEVICE = "cuda"
 
 
 def emit(phase, **fields):
@@ -221,7 +253,7 @@ def phase_newref(files):
     reset_stage_times()
     t0 = time.perf_counter()
     cli.main(["newref", *files, ref, "--binsize", str(BINSIZE),
-              "--refsize", str(REFSIZE), "--device", "cuda"])
+              "--refsize", str(REFSIZE), "--device", CLI_DEVICE])
     wall = time.perf_counter() - t0
     emit("newref", seconds=round(wall, 3),
          stages={k: round(v, 3) for k, v in stage_times().items()})
@@ -235,7 +267,7 @@ def phase_predict(ref, case, tag, want_gain_chr):
     outid = os.path.join(WORK, tag)
     reset_stage_times()
     t0 = time.perf_counter()
-    cli.main(["predict", case, ref, outid, "--bed", "--device", "cuda"])
+    cli.main(["predict", case, ref, outid, "--bed", "--device", CLI_DEVICE])
     wall = time.perf_counter() - t0
     gender, rows, whole = read_calls(outid, ref)
     emit("predict", sample=tag, gender=gender, seconds=round(wall, 3),
@@ -290,7 +322,7 @@ def phase_predict_batch(ref, plate, t21_outid, device):
     cbs.reset_round_counts()
     t0 = time.perf_counter()
     try:
-        cli.main(["predict-batch", ref, outdir, "--bed", "--device", "cuda",
+        cli.main(["predict-batch", ref, outdir, "--bed", "--device", CLI_DEVICE,
                   "--infiles", *(path for path, _ in plate)])
     except SystemExit as e:
         code = e.code
@@ -361,7 +393,7 @@ def _unplanted_calls(ref, path, name, extra, planted, device):
     from wisecondorx_tpu_torch.models.ref_loader import ReferenceLoader
 
     single = os.path.join(WORK, f"single_{name}")
-    cli.main(["predict", path, ref, single, "--bed", "--device", "cuda"])
+    cli.main(["predict", path, ref, single, "--bed", "--device", CLI_DEVICE])
     whole_single = read_calls(single, ref)[2]
     cfg = PredictConfig()
     sample = np.load(path, allow_pickle=True)["sample"].item()
@@ -606,22 +638,17 @@ def _nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def phase_kernels(samples, ref, device):
-    """K1/K2 against their plain versions (and K2 on its edge fixtures),
-    each with its time, its bound and its library yardstick; and the
-    stored neighbours against the exact float64 search, at the A-pass
-    shape."""
+def _k1_inputs(ml, s, device):
+    """K1's arguments at the first row chunk of the A-pass shape of ``ml``
+    with ``s`` samples, on integer-valued inputs (every distance exact in
+    float32), and the share of distances the sentinel masks."""
     import numpy as np
     import torch
 
-    from wisecondorx_tpu_torch.ops import knn, knn_cuda
+    from wisecondorx_tpu_torch.ops import knn_cuda
 
-    ref_a, ml, corrected = a_pass(samples, ref, device)
-    n, s = corrected.shape
-    lanes, depth = knn_cuda.LANES, knn_cuda.DEPTH
-
-    # K1 / K2 on integer-valued inputs of the first row chunk's shape.
     rng = np.random.default_rng(SEED)
+    n, lanes = ml.n_masked, knn_cuda.LANES
     n_pad = -(-n // lanes) * lanes
     s_pad = -(-s // knn_cuda.S_MULTIPLE) * knn_cuda.S_MULTIPLE
     cand = torch.zeros((n_pad, s_pad), dtype=torch.float32, device=device)
@@ -635,47 +662,49 @@ def phase_kernels(samples, ref, device):
     r = min(knn_cuda.ROW_CHUNK, n)
     rchr = cchr[:r]
     sentinel = INT_SENTINEL_PER_SAMPLE * s
-    args = (cand[:r], cnorm[:r], rchr, starts[rchr.long()].contiguous(),
-            sizes[rchr.long()].contiguous(), cand, cnorm, cchr, n, sentinel)
-    got = knn_cuda.bucket_scan(*args)
-    want = knn_cuda.bucket_scan_reference(*args, lanes=lanes, depth=depth)
-    torch.cuda.synchronize()
-    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-            and torch.equal(got[2], want[2])):
-        raise AssertionError("K1 pools differ from bucket_scan_reference")
     d = cnorm[:256, None] + cnorm[None, :n] - 2.0 * (cand[:256] @ cand[:n].T)
-    sentinel_share = float((d >= sentinel).double().mean())
-    del d
-    if not 0.0 < sentinel_share < 1.0:
-        raise AssertionError(f"sentinel {sentinel} masks {sentinel_share} of K1's input")
-    k1_err = max(_max_abs(got[0], want[0]), _max_abs(got[2], want[2]))
-    k1_ms = cuda_ms(lambda: knn_cuda.bucket_scan(*args))
-    k1_plain_ms = cuda_ms(
-        lambda: knn_cuda.bucket_scan_reference(*args, lanes=lanes, depth=depth)
-    )
-    # K1's yardstick: the bare product of its distances in full fp32 (no
-    # single call computes the distances and their bucketed top-M).
-    torch.backends.cuda.matmul.allow_tf32 = False
-    k1_product_ms = cuda_ms(lambda: torch.mm(cand[:r], cand.T))
-    k1_bound = _bound(3 * 2 * r * n * s, _nbytes(*args[:8], *got))
-    top = knn_cuda.extract_topk(*got, REFSIZE)
-    top_ref = knn_cuda.extract_topk_reference(*want, REFSIZE)
-    torch.cuda.synchronize()
-    finite = torch.isfinite(top[0])
-    if not (torch.equal(top[0], top_ref[0]) and torch.equal(top[2], top_ref[2])
-            and torch.equal(top[1][finite], top_ref[1][finite])):
-        raise AssertionError("K2 differs from extract_topk_reference")
-    k2_err = _max_abs(top[0], top_ref[0])
-    k2_ms = cuda_ms(lambda: knn_cuda.extract_topk(*got, REFSIZE))
-    k2_plain_ms = cuda_ms(lambda: knn_cuda.extract_topk_reference(*want, REFSIZE))
-    k2_topk_ms = cuda_ms(lambda: torch.topk(got[0], REFSIZE, dim=1, largest=False))
-    # Each pool value and drop read once, the k chosen indexes, the outputs.
-    k2_bound = _bound(0, _nbytes(got[0], got[2], top[1], *top))
-    edges = k2_edges(device)
-    del got, want, top, top_ref, args, cand
+    share = float((d >= sentinel).double().mean())
+    if not 0.0 < share < 1.0:
+        raise AssertionError(f"sentinel {sentinel} masks {share} of K1's input")
+    return (cand[:r], cnorm[:r], rchr, starts[rchr.long()].contiguous(),
+            sizes[rchr.long()].contiguous(), cand, cnorm, cchr, n,
+            sentinel), share
 
-    # The kernel search and the exact float64 search of the A pass, timed;
-    # the neighbours newref stored are held against the exact ones.
+
+def _k1_check(args):
+    """K1 and its plain version on ``args``: (K1's pools, the plain
+    version's, max_abs_err); raises unless they are equal."""
+    import torch
+
+    from wisecondorx_tpu_torch.ops import knn_cuda
+
+    got = knn_cuda.bucket_scan(*args)
+    want = knn_cuda.bucket_scan_reference(*args, lanes=knn_cuda.LANES,
+                                          depth=knn_cuda.DEPTH)
+    torch.cuda.synchronize()
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(
+            f"K1 pools differ from bucket_scan_reference at s_pad {args[0].shape[1]}"
+        )
+    return got, want, max(_max_abs(got[0], want[0]), _max_abs(got[2], want[2]))
+
+
+def _k1_bound(args, got, s):
+    """K1's bound on ``args`` with ``s`` real samples: 3xTF32 products of
+    every row with every valid candidate; every input and output once."""
+    return _bound(3 * 2 * args[0].shape[0] * args[8] * s,
+                  _nbytes(*args[:8], *got))
+
+
+def _stored_vs_exact(ref_a, ml, corrected, device):
+    """The kernel search of the A pass, timed, and the neighbours newref
+    stored held against the exact float64 search of the same rows.
+    Returns the measures; raises below the bar."""
+    import numpy as np
+    import torch
+
+    from wisecondorx_tpu_torch.ops import knn, knn_cuda
+
     layout_args = (ml.chr_of_masked_bin, ml.masked_chr_starts,
                    ml.masked_bins_per_chr)
     stats = {}
@@ -694,14 +723,64 @@ def phase_kernels(samples, ref, device):
                                   device=device)
     agree = _agreement(stored_idx, idx_e, REFSIZE)
     rel = (stored_dist - dist_e).abs() / dist_e.abs().clamp(min=1e-300)
-    result = dict(
-        rows=n, samples=s, ref_size=REFSIZE, lanes=lanes, depth=depth,
-        k1_sentinel=sentinel, k1_sentinel_share=sentinel_share,
+    out = dict(
+        rows=ml.n_masked, samples=corrected.shape[1],
         agree_mean=agree.mean(), agree_min=agree.min(),
         dist_rel_err_median=float(rel.median()),
         flagged_rows=stats["flagged_rows"],
         rerun_share=stats["flagged_rows"] / stats["n_rows"],
         search_s=round(search_s, 4), exact_f64_s=round(exact_s, 4),
+    )
+    if agree.mean() < MEAN_AGREE or agree.min() < MIN_AGREE:
+        raise AssertionError(f"neighbour agreement below the bar: {out}")
+    if not rel.median() <= MAX_DIST_REL_ERR:
+        raise AssertionError(f"median distance error above {MAX_DIST_REL_ERR}: {out}")
+    return out
+
+
+def phase_kernels(ref_a, ml, corrected, device):
+    """K1/K2 against their plain versions (and K2 on its edge fixtures),
+    each with its time, its bound and its library yardstick; and the
+    stored neighbours against the exact float64 search, at the A-pass
+    shape."""
+    import torch
+
+    from wisecondorx_tpu_torch.ops import knn_cuda
+
+    n, s = corrected.shape
+    lanes, depth = knn_cuda.LANES, knn_cuda.DEPTH
+    args, sentinel_share = _k1_inputs(ml, s, device)
+    r, cand = args[0].shape[0], args[5]
+    got, want, k1_err = _k1_check(args)
+    k1_ms = cuda_ms(lambda: knn_cuda.bucket_scan(*args))
+    k1_plain_ms = cuda_ms(
+        lambda: knn_cuda.bucket_scan_reference(*args, lanes=lanes, depth=depth)
+    )
+    # K1's yardstick: the bare product of its distances in full fp32 (no
+    # single call computes the distances and their bucketed top-M).
+    torch.backends.cuda.matmul.allow_tf32 = False
+    k1_product_ms = cuda_ms(lambda: torch.mm(cand[:r], cand.T))
+    k1_bound = _k1_bound(args, got, s)
+    top = knn_cuda.extract_topk(*got, REFSIZE)
+    top_ref = knn_cuda.extract_topk_reference(*want, REFSIZE)
+    torch.cuda.synchronize()
+    finite = torch.isfinite(top[0])
+    if not (torch.equal(top[0], top_ref[0]) and torch.equal(top[2], top_ref[2])
+            and torch.equal(top[1][finite], top_ref[1][finite])):
+        raise AssertionError("K2 differs from extract_topk_reference")
+    k2_err = _max_abs(top[0], top_ref[0])
+    k2_ms = cuda_ms(lambda: knn_cuda.extract_topk(*got, REFSIZE))
+    k2_plain_ms = cuda_ms(lambda: knn_cuda.extract_topk_reference(*want, REFSIZE))
+    k2_topk_ms = cuda_ms(lambda: torch.topk(got[0], REFSIZE, dim=1, largest=False))
+    # Each pool value and drop read once, the k chosen indexes, the outputs.
+    k2_bound = _bound(0, _nbytes(got[0], got[2], top[1], *top))
+    edges = k2_edges(device)
+    del got, want, top, top_ref, args, cand
+
+    result = dict(
+        ref_size=REFSIZE, lanes=lanes, depth=depth,
+        k1_sentinel=INT_SENTINEL_PER_SAMPLE * s, k1_sentinel_share=sentinel_share,
+        **_stored_vs_exact(ref_a, ml, corrected, device),
         chunk_rows=r, k1_ms=k1_ms, k1_plain_ms=k1_plain_ms,
         k1_product_ms=k1_product_ms, k1_bound_ms=k1_bound[0],
         k1_bound_by=k1_bound[1],
@@ -710,10 +789,6 @@ def phase_kernels(samples, ref, device):
         k2_bound_ms=k2_bound[0], k2_bound_by=k2_bound[1], k2_edges=edges,
     )
     emit("kernels", **result)
-    if agree.mean() < MEAN_AGREE or agree.min() < MIN_AGREE:
-        raise AssertionError(f"neighbour agreement below the bar: {result}")
-    if not rel.median() <= MAX_DIST_REL_ERR:
-        raise AssertionError(f"median distance error above {MAX_DIST_REL_ERR}: {result}")
     return result, k1_err, k2_err
 
 
@@ -758,6 +833,315 @@ def _agreement(idx_a, idx_b, k):
     return common.cpu().numpy()
 
 
+def launches_of(label, fn):
+    """Run ``fn`` with the kernels' launch counts set to 0 just before and
+    read just after; fails unless both kernels ran.  Returns (its result,
+    the counts, seconds)."""
+    from wisecondorx_tpu_torch.ops import knn_cuda
+
+    knn_cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    seconds = time.perf_counter() - t0
+    counts = dict(knn_cuda.LAUNCHES)
+    for name, count in counts.items():
+        if count < 1:
+            raise AssertionError(f"{label}: kernel {name} was not launched")
+    return out, counts, seconds
+
+
+def _npz_differences(path_a, path_b):
+    """Members of two .npz files that differ (in name or in any byte)."""
+    import numpy as np
+
+    a, b = (np.load(p, allow_pickle=True) for p in (path_a, path_b))
+    diff = sorted(set(a.files) ^ set(b.files))
+    for key in sorted(set(a.files) & set(b.files)):
+        x, y = a[key], b[key]
+        if x.dtype != y.dtype or x.shape != y.shape or x.tobytes() != y.tobytes():
+            diff.append(key)
+    return diff
+
+
+class SimulatedCrash(Exception):
+    """Stops newref in the checkpoint phase, as a crash would."""
+
+
+def phase_checkpoint(files, ref, full_launches):
+    """newref with ``--checkpoint-dir``, stopped right after it saves its
+    first ``knn_A_*`` artifact (``NewrefCheckpoint.save`` patched in
+    process), then run again: it must resume, write a reference equal in
+    every member to the newref phase's, remove the directory, and launch
+    K1 fewer times than the full build did."""
+    from wisecondorx_tpu_torch import cli
+    from wisecondorx_tpu_torch.ops import knn_cuda
+    from wisecondorx_tpu_torch.utils import checkpoint
+
+    ckdir = os.path.join(WORK, "checkpoint")
+    out = os.path.join(WORK, "reference_resumed.npz")
+    argv = ["newref", *files, out, "--binsize", str(BINSIZE), "--refsize",
+            str(REFSIZE), "--device", CLI_DEVICE, "--checkpoint-dir", ckdir]
+    save = checkpoint.NewrefCheckpoint.save
+
+    def crashing_save(self, name, **arrays):
+        save(self, name, **arrays)
+        if name.startswith("knn_A_"):
+            raise SimulatedCrash(name)
+
+    checkpoint.NewrefCheckpoint.save = crashing_save
+    knn_cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        cli.main(argv)
+    except SimulatedCrash:
+        pass
+    else:
+        raise AssertionError("newref finished without saving a knn_A_ artifact")
+    finally:
+        checkpoint.NewrefCheckpoint.save = save
+    crashed_s = time.perf_counter() - t0
+    crashed = dict(knn_cuda.LAUNCHES)
+    left = sorted(os.listdir(ckdir))
+    _, resumed, resumed_s = launches_of("resumed newref", lambda: cli.main(argv))
+    diff = _npz_differences(out, ref)
+    emit("checkpoint", left_by_crash=left, crashed_launches=crashed,
+         resumed_launches=resumed, full_launches=full_launches,
+         crashed_seconds=round(crashed_s, 3), resumed_seconds=round(resumed_s, 3),
+         members_differing=diff, directory_removed=not os.path.exists(ckdir))
+    if not any(f.startswith("knn_A_") for f in left) or "prep_A.npz" not in left:
+        raise AssertionError(f"the crash left {left}")
+    if diff:
+        raise AssertionError(f"the resumed reference differs in {diff}")
+    if os.path.exists(ckdir):
+        raise AssertionError("the checkpoint directory is still there")
+    if not resumed["knn_bucket"] < full_launches["knn_bucket"]:
+        raise AssertionError(f"K1 launched {resumed} resumed, {full_launches} in full")
+
+
+def _load_samples(paths):
+    from wisecondorx_tpu_torch.io.npz import load_sample_npz
+
+    return [load_sample_npz(p)[:2] for p in paths]
+
+
+def phase_multidevice(ml, corrected, ref, plate, device):
+    """The A pass's KNN search and predict_batch on the plate with the
+    device listed twice, each part on its own host thread: equal bit for
+    bit to one device."""
+    import numpy as np
+    import torch
+
+    from wisecondorx_tpu_torch.models.predictor import PredictConfig
+    from wisecondorx_tpu_torch.parallel.batch import predict_batch
+    from wisecondorx_tpu_torch.parallel.sharded_knn import knn_search_multidevice
+
+    args = (corrected, ml.chr_of_masked_bin, ml.masked_chr_starts,
+            ml.masked_bins_per_chr, REFSIZE)
+    one, _, one_s = launches_of(
+        "one-device search", lambda: knn_search_multidevice(*args, devices=[device]))
+    two, counts, two_s = launches_of(
+        "two-device search",
+        lambda: knn_search_multidevice(*args, devices=[device, device]))
+    knn_equal = all(np.array_equal(a, b) for a, b in zip(one, two))
+    paths = [p for p, ev in plate if ev != "unreadable"]
+    cfg = PredictConfig()
+    runs = {}
+    for n_dev in (1, 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs[n_dev] = predict_batch(_load_samples(paths), ref, cfg,
+                                    [device] * n_dev)
+        runs[n_dev] = (runs[n_dev], time.perf_counter() - t0)
+    fields = ("results_r", "results_z", "results_w", "results_nr")
+    batch_diff = [
+        os.path.basename(p) for p, a, b in zip(paths, runs[1][0], runs[2][0])
+        if (a.ref_gender, a.gender) != (b.ref_gender, b.gender)
+        or not all(np.array_equal(x, y, equal_nan=True)
+                   for f in fields for x, y in zip(getattr(a, f), getattr(b, f)))
+    ]
+    emit("multidevice", devices=[str(device)] * 2, knn_equal=knn_equal,
+         knn_launches=counts, knn_one_s=round(one_s, 4), knn_two_s=round(two_s, 4),
+         batch_samples=len(paths), batch_differing=batch_diff,
+         batch_one_s=round(runs[1][1], 3), batch_two_s=round(runs[2][1], 3))
+    if not knn_equal:
+        raise AssertionError("the two-device search differs from one device")
+    if batch_diff:
+        raise AssertionError(f"two-device predict_batch differs on {batch_diff}")
+
+
+WORKER = r"""
+import json, os, sys
+from wisecondorx_tpu_torch import cli
+from wisecondorx_tpu_torch.ops import knn_cuda
+
+knn_cuda.reset_launch_counts()
+code = 0
+try:
+    cli.main(sys.argv[1:])
+except SystemExit as e:
+    code = e.code
+print("WORKER " + json.dumps({"rank": int(os.environ["RANK"]), "exit_code": code,
+                              "launches": dict(knn_cuda.LAUNCHES)}), flush=True)
+"""
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def run_workers(tag, argv):
+    """The CLI with ``argv`` in two processes of one gloo group on
+    127.0.0.1 (torchrun's environment), both on the one card.  Each has
+    WORKER_TIMEOUT seconds; its output goes to a log file.  Returns
+    ([per-rank report], seconds)."""
+    script = os.path.join(WORK, "worker.py")
+    with open(script, "w") as f:
+        f.write(WORKER)
+    port = _free_port()
+    procs, logs = [], []
+    t0 = time.perf_counter()
+    for rank in range(2):
+        env = dict(os.environ, WORLD_SIZE="2", RANK=str(rank),
+                   LOCAL_RANK=str(rank), MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(port),
+                   PYTHONPATH=os.pathsep.join(
+                       [REPO] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+        logs.append(os.path.join(WORK, f"{tag}_rank{rank}.log"))
+        with open(logs[-1], "w") as log:
+            procs.append(subprocess.Popen([sys.executable, script, *argv],
+                                          env=env, stdout=log,
+                                          stderr=subprocess.STDOUT, cwd=REPO))
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, WORKER_TIMEOUT - (time.perf_counter() - t0)))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    seconds = time.perf_counter() - t0
+    reports = []
+    for rank, (p, path) in enumerate(zip(procs, logs)):
+        text = open(path).read()
+        lines = [ln for ln in text.splitlines() if ln.startswith("WORKER ")]
+        if p.returncode != 0 or not lines:
+            raise AssertionError(f"{tag} rank {rank} exited {p.returncode}:\n"
+                                 + text[-3000:])
+        reports.append(json.loads(lines[-1][len("WORKER "):]))
+    return reports, seconds
+
+
+def phase_multiproc(files, ref, plate):
+    """newref and predict-batch as two worker processes on the one card.
+    newref: process 0's reference equals the newref phase's in every
+    member, and each process launched both kernels.  predict-batch on the
+    plate: each process scores its shard (exit 3 where the corrupt file
+    fell), and together they write every sample's outputs byte-equal to
+    the predict_batch phase's."""
+    from wisecondorx_tpu_torch.parallel.multihost import shard_files
+
+    out = os.path.join(WORK, "reference_2proc.npz")
+    newref, newref_s = run_workers("newref", [
+        "newref", *files, out, "--binsize", str(BINSIZE), "--refsize",
+        str(REFSIZE), "--device", CLI_DEVICE])
+    diff = _npz_differences(out, ref)
+    outdir = os.path.join(WORK, "plate_out_2proc")
+    paths = [p for p, _ in plate]
+    batch, batch_s = run_workers("predict_batch", [
+        "predict-batch", ref, outdir, "--bed", "--device", CLI_DEVICE,
+        "--infiles", *paths])
+    want_codes = [3 if any(ev == "unreadable" for p, ev in plate
+                           if p in shard_files(paths, r, 2)) else 0
+                  for r in range(2)]
+    differing = []
+    for path, ev in plate:
+        if ev == "unreadable":
+            continue
+        base = os.path.basename(path)[:-4]
+        for suffix in ("_bins.bed", "_segments.bed", "_aberrations.bed",
+                       "_statistics.txt"):
+            got = os.path.join(outdir, base + suffix)
+            want = os.path.join(WORK, "plate_out", base + suffix)
+            if not os.path.exists(got) or open(got, "rb").read() != open(want, "rb").read():
+                differing.append(base + suffix)
+    emit("multiproc", newref_seconds=round(newref_s, 3),
+         newref_ranks=newref, newref_members_differing=diff,
+         batch_seconds=round(batch_s, 3), batch_ranks=batch,
+         batch_exit_codes_wanted=want_codes, batch_files_differing=differing)
+    for rep in newref:
+        if rep["exit_code"] not in (0, None):
+            raise AssertionError(f"newref rank {rep['rank']} exited {rep['exit_code']}")
+        if min(rep["launches"].values()) < 1:
+            raise AssertionError(f"newref rank {rep['rank']} launches {rep['launches']}")
+    if diff:
+        raise AssertionError(f"the two-process reference differs in {diff}")
+    if [rep["exit_code"] or 0 for rep in batch] != want_codes:
+        raise AssertionError(f"predict-batch exit codes {batch}, want {want_codes}")
+    if differing:
+        raise AssertionError(f"two-process predict-batch differs in {differing}")
+
+
+def phase_wide(ml_main, device):
+    """newref through the CLI on 720 controls (360 F + 360 M) at 50 kb,
+    genome_scale 0.25, so the A pass's s_pad (736) is above K1's resident
+    cap; its stored neighbours against the exact float64 search; then K1
+    against its plain version at the main A pass's row-chunk shape with
+    1,000 and 4,096 samples, each timed beside its bound."""
+    import numpy as np
+    import torch
+
+    from wisecondorx_tpu_torch import cli
+    from wisecondorx_tpu_torch.ops import _build, knn_cuda
+
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from synthetic import CohortSim
+
+    wide_dir = os.path.join(WORK, "wide")
+    os.makedirs(wide_dir)
+    t0 = time.perf_counter()
+    sim = CohortSim(binsize=BINSIZE, genome_scale=WIDE_GENOME_SCALE, seed=SEED + 1)
+    samples, _ = sim.cohort(WIDE_FEMALE, WIDE_MALE)
+    files = []
+    for i, sample in enumerate(samples):
+        files.append(os.path.join(wide_dir, f"control_{i:03d}.npz"))
+        save_sample(files[-1], sample)
+    cohort_s = time.perf_counter() - t0
+    ref = os.path.join(wide_dir, "reference.npz")
+    _, launches, newref_s = launches_of("wide newref", lambda: cli.main([
+        "newref", *files, ref, "--binsize", str(BINSIZE), "--refsize",
+        str(REFSIZE), "--device", CLI_DEVICE]))
+    ref_a, ml, corrected = a_pass(samples, ref, device)
+    resident = _build.load().wcx_knn_bucket_resident_s_pad()
+    s_pad = -(-corrected.shape[1] // knn_cuda.S_MULTIPLE) * knn_cuda.S_MULTIPLE
+    search = _stored_vs_exact(ref_a, ml, corrected, device)
+    del corrected
+    k1 = []
+    for s in WIDE_K1_SAMPLES:
+        torch.cuda.empty_cache()
+        args, share = _k1_inputs(ml_main, s, device)
+        got, want, err = _k1_check(args)
+        del want
+        bound = _k1_bound(args, got, s)
+        k1.append(dict(
+            samples=s, s_pad=args[0].shape[1], rows=args[0].shape[0],
+            candidates=args[8], sentinel_share=share, max_abs_err=err,
+            ms=cuda_ms(lambda: knn_cuda.bucket_scan(*args)),
+            plain_ms=cuda_ms(lambda: knn_cuda.bucket_scan_reference(
+                *args, lanes=knn_cuda.LANES, depth=knn_cuda.DEPTH), reps=1),
+            bound_ms=bound[0], bound_by=bound[1]))
+        del got, args
+    emit("wide", controls=len(files), cohort_seconds=round(cohort_s, 3),
+         newref_seconds=round(newref_s, 3), newref_launches=launches,
+         s_pad=s_pad, resident_s_pad=resident, **search, k1=k1)
+    if not s_pad > resident:
+        raise AssertionError(f"s_pad {s_pad} does not reach past {resident}")
+    return k1
+
+
 def main():
     device = phase_device()
     import torch
@@ -784,7 +1168,14 @@ def main():
     phase_predict_batch(ref, plate, os.path.join(WORK, "case_t21"), device)
     phase_cbs_stream(ref, t21, device)
     torch.cuda.empty_cache()
-    result, k1_err, k2_err = phase_kernels(samples, ref, device)
+    ref_a, ml, corrected = a_pass(samples, ref, device)
+    result, k1_err, k2_err = phase_kernels(ref_a, ml, corrected, device)
+    phase_checkpoint(files, ref, launches)
+    phase_multidevice(ml, corrected, ref, plate, torch.device("cuda", 0))
+    del corrected
+    torch.cuda.empty_cache()
+    phase_multiproc(files, ref, plate)
+    wide_k1 = phase_wide(ml, device)
 
     kernels = [
         {"name": "knn_bucket", "route": "cuda",
@@ -794,6 +1185,8 @@ def main():
          "ms": result["k1_ms"], "plain_ms": result["k1_plain_ms"],
          "bound_ms": result["k1_bound_ms"], "bound_by": result["k1_bound_by"],
          "library_ms": None, "product_ms": result["k1_product_ms"],
+         "wide": [{k: w[k] for k in ("samples", "ms", "plain_ms", "bound_ms",
+                                     "bound_by", "max_abs_err")} for w in wide_k1],
          "ptxas": ptxas.get("knn_bucket.cu")},
         {"name": "knn_topk", "route": "cuda",
          "source": "wisecondorx_tpu_torch/csrc/knn_topk.cu",

@@ -65,6 +65,27 @@ def test_k1_k2_equal_plain_versions(dev, sentinel):
         assert torch.equal(g2[1][finite], w2[1][finite])
 
 
+@pytest.mark.parametrize("s", [700, 1000, 4096])
+def test_k1_equals_plain_version_on_wide_sample_axes(dev, s):
+    """Above 672 samples (s_pad) the rows stream through K1's ring instead
+    of staying resident; the pools stay exact on integer inputs."""
+    *args, n = _integer_inputs(dev, n=5000, s=s, r=700, offset=300, seed=s)
+    if s % knn_cuda.S_MULTIPLE:  # the wrapper's padding of the sample axis
+        pad = knn_cuda.S_MULTIPLE - s % knn_cuda.S_MULTIPLE
+        args[0] = torch.nn.functional.pad(args[0], (0, pad)).contiguous()
+        args[5] = torch.nn.functional.pad(args[5], (0, pad)).contiguous()
+    sentinel = chip_smoke.INT_SENTINEL_PER_SAMPLE * s  # masks about half
+    knn_cuda.reset_launch_counts()
+    got = knn_cuda.bucket_scan(*args, n, sentinel)
+    assert knn_cuda.LAUNCHES["knn_bucket"] == 1
+    want = knn_cuda.bucket_scan_reference(
+        *args, n, sentinel, lanes=knn_cuda.LANES, depth=knn_cuda.DEPTH
+    )
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
 @pytest.mark.parametrize("case", chip_smoke.k2_edge_cases(), ids=lambda c: c[0])
 def test_k2_equals_plain_version_at_the_edges(dev, case):
     _, *arrays, k = case

@@ -43,6 +43,9 @@ PORT_MODULES = [
     "wisecondorx_tpu_torch.models.predictor",
     "wisecondorx_tpu_torch.parallel",
     "wisecondorx_tpu_torch.parallel.batch",
+    "wisecondorx_tpu_torch.parallel.multihost",
+    "wisecondorx_tpu_torch.parallel.sharded_knn",
+    "wisecondorx_tpu_torch.utils.checkpoint",
     "wisecondorx_tpu_torch.utils.log",
 ]
 

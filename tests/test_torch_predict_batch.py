@@ -139,18 +139,14 @@ def test_batched_normalize_equals_single(plate, chunk):
     """predict_batch normalizes ``chunk`` samples on one sample axis; each
     sample's bins equal predict_bins on the same reference tables."""
     from wisecondorx_tpu_torch.models.predictor import PredictConfig, predict_bins
-    from wisecondorx_tpu_torch.models.ref_loader import (
-        ReferenceLoader,
-        load_reference,
-    )
+    from wisecondorx_tpu_torch.models.ref_loader import load_reference
     from wisecondorx_tpu_torch.parallel.batch import predict_batch
 
     _, ref, paths, _, _, _ = plate
     cfg = PredictConfig(minrefbins=10)
     loaded = [io_npz.load_sample_npz(paths[n])[:2] for n in GOOD]
-    with ReferenceLoader(ref, CPU) as loader:
-        batch = predict_batch([(dict(s), b) for s, b in loaded * 2], loader,
-                              cfg, chunk=chunk)
+    batch = predict_batch([(dict(s), b) for s, b in loaded * 2], ref, cfg,
+                          [CPU], chunk=chunk)
     dref = load_reference(ref, CPU)
     for i, (s, b) in enumerate(loaded * 2):
         want = predict_bins(dict(s), b, dref, cfg)

@@ -197,8 +197,10 @@ def test_gender_subcommand(run, capsys):
 
 @pytest.mark.parametrize("argv", [
     ["predict", "a.npz", "r.npz", "out", "--bed", "--plot", "--device", "cpu"],
-    ["newref", "a.npz", "b.npz", "r.npz", "--checkpoint-dir", "ck",
+    ["newref", "a.npz", "b.npz", "r.npz", "--plotyfrac", "y.png",
      "--device", "cpu"],
+    ["predict-batch", "r.npz", "outdir", "--bed", "--plot", "--device", "cpu",
+     "--infiles", "a.npz"],
 ])
 def test_cli_refuses_what_is_not_ported(argv, caplog):
     with pytest.raises(SystemExit) as exc:

@@ -2,11 +2,16 @@
 
 ``convert``, ``newref``, ``predict --bed``, ``predict-batch --bed`` and
 ``gender`` take the JAX CLI's flags and read and write the same ``.npz``
-schemas; the device stages add ``--device {cuda,cpu}`` (default ``cuda``,
-which fails when no CUDA device is present).  ``convert`` runs the port's
-copy of the native BAM/CRAM reader and touches no device.  What the port
-does not carry yet -- ``--plot``, ``--plotyfrac`` and ``--checkpoint-dir``
--- exits non-zero with a message naming the JAX CLI (``wisecondorx-tpu``).
+schemas; the device stages add ``--device`` (``cuda``, the default: every
+visible card, and a failure when there is none; ``cuda:N``; ``cpu``).
+``convert`` runs the port's copy of the native BAM/CRAM reader and touches
+no device.  ``newref`` and ``predict-batch`` run as several processes when
+started the way ``torchrun`` starts them (``WORLD_SIZE``, ``RANK``,
+``MASTER_ADDR``, ``MASTER_PORT``): newref splits its KNN rows over the
+processes and process 0 writes the reference; predict-batch shards the
+plate's files.  What the port does not carry yet -- ``--plot`` and
+``--plotyfrac`` -- exits non-zero with a message naming the JAX CLI
+(``wisecondorx-tpu``).
 """
 
 from __future__ import annotations
@@ -50,19 +55,23 @@ def tool_newref(args):
         verify_reference_npz,
     )
     from wisecondorx_tpu_torch.ref_qc import qc_reference_arrays
-    from wisecondorx_tpu_torch.device import resolve_device
+    from wisecondorx_tpu_torch.device import resolve_devices
     from wisecondorx_tpu_torch.models.reference import (
         NewrefConfig,
         NewrefError,
         build_reference,
     )
+    from wisecondorx_tpu_torch.parallel.multihost import (
+        maybe_initialize_distributed,
+    )
 
     if args.plotyfrac is not None:
         _not_ported("newref --plotyfrac")
-    if args.checkpoint_dir is not None:
-        _not_ported("newref --checkpoint-dir")
-    device = resolve_device(args.device)
-    logging.info("Creating new reference on %s", device)
+    rank, world = maybe_initialize_distributed()
+    devices = resolve_devices(args.device)
+    logging.info("Creating new reference on %s%s",
+                 ", ".join(map(str, devices)),
+                 f" (process {rank} of {world})" if world > 1 else "")
     with stage_timer("newref.load_inputs"):
         def load_one(infile):
             sample, binsize, _ = load_sample_npz(infile)
@@ -71,12 +80,17 @@ def tool_newref(args):
         with ThreadPoolExecutor(max_workers=8) as pool:
             samples = list(pool.map(load_one, args.infiles))
     cfg = NewrefConfig(binsize=int(args.binsize), refsize=args.refsize,
-                       nipt=args.nipt, yfrac=args.yfrac, seed=args.seed)
+                       nipt=args.nipt, yfrac=args.yfrac, seed=args.seed,
+                       checkpoint_dir=args.checkpoint_dir)
     try:
-        passes, meta = build_reference(samples, cfg, device)
+        passes, meta = build_reference(samples, cfg, devices[0],
+                                       devices=devices)
     except NewrefError as e:
         logging.critical(str(e))
         sys.exit(1)
+    if rank != 0:
+        logging.info("Finished; process 0 writes the reference")
+        return
     outfile = args.outfile if args.outfile.endswith(".npz") else args.outfile + ".npz"
     final = flatten_reference(passes, is_nipt=meta["is_nipt"],
                               trained_cutoff=meta["trained_cutoff"])
@@ -158,20 +172,28 @@ def tool_test_batch(args):
 
     from wisecondorx_tpu_torch.errors import UserInputError
     from wisecondorx_tpu_torch.output.tables import generate_output_tables
-    from wisecondorx_tpu_torch.device import resolve_device
+    from wisecondorx_tpu_torch.device import resolve_devices
     from wisecondorx_tpu_torch.models.predictor import (
         PredictError,
         segment_bins_batch,
     )
-    from wisecondorx_tpu_torch.models.ref_loader import ReferenceLoader
     from wisecondorx_tpu_torch.parallel.batch import predict_batch
+    from wisecondorx_tpu_torch.parallel.multihost import (
+        maybe_initialize_distributed,
+        shard_files,
+    )
 
     cfg = _predict_config(args)
-    device = resolve_device(args.device)
+    rank, world = maybe_initialize_distributed()
+    devices = resolve_devices(args.device)
+    infiles = shard_files(args.infiles, rank, world)
+    if world > 1:
+        logging.info("Process %d of %d takes %d of %d samples", rank, world,
+                     len(infiles), len(args.infiles))
     os.makedirs(args.outdir, exist_ok=True)
     loaded, outids, infiles_loaded, failed = [], [], [], []
     with stage_timer("predict_batch.load_samples"):
-        for infile in args.infiles:
+        for infile in infiles:
             try:
                 sample, binsize, _ = load_sample_npz(infile)
             except (UserInputError, FileNotFoundError, KeyError,
@@ -185,21 +207,21 @@ def tool_test_batch(args):
             outids.append(os.path.join(
                 args.outdir, base[:-4] if base.endswith(".npz") else base
             ))
-    logging.info("Batch prediction: %d samples on %s", len(loaded), device)
-    with ReferenceLoader(args.reference, device) as loader:
-        try:
-            all_bins = predict_batch(loaded, loader, cfg, chunk=args.chunk,
-                                     skip_errors=True)
-        except PredictError as e:
-            logging.critical(str(e))
-            sys.exit(1)
+    logging.info("Batch prediction: %d samples on %s", len(loaded),
+                 ", ".join(map(str, devices)))
+    try:
+        all_bins = predict_batch(loaded, args.reference, cfg, devices,
+                                 chunk=args.chunk, skip_errors=True)
+    except PredictError as e:
+        logging.critical(str(e))
+        sys.exit(1)
     good = []
     for infile, outid, bins in zip(infiles_loaded, outids, all_bins):
         if bins is None:
             failed.append(infile)
         else:
             good.append((outid, bins))
-    all_segments = segment_bins_batch([b for _, b in good], cfg, device)
+    all_segments = segment_bins_batch([b for _, b in good], cfg, devices[0])
     with stage_timer("predict_batch.write"):
         for (outid, bins), segments in zip(good, all_segments):
             generate_output_tables(outid, bins, segments, cfg,
@@ -208,8 +230,9 @@ def tool_test_batch(args):
     logging.info("Finished batch prediction")
     if failed:
         logging.error(
-            "%d of %d samples failed and were skipped (see errors above): %s",
-            len(failed), len(args.infiles), ", ".join(failed),
+            "%d of %d samples%s failed and were skipped (see errors above): "
+            "%s", len(failed), len(infiles),
+            " in this process's shard" if world > 1 else "", ", ".join(failed),
         )
         sys.exit(3)
 
@@ -224,8 +247,9 @@ def build_parser() -> argparse.ArgumentParser:
     fmt = argparse.ArgumentDefaultsHelpFormatter
 
     def device_flag(p):
-        p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
-                       help="Device to run on; cuda fails when none is present")
+        p.add_argument("--device", default="cuda",
+                       help="cuda (every visible card; fails when there is "
+                       "none), cuda:N or cpu")
 
     p = sub.add_parser(
         "convert", formatter_class=fmt,
@@ -255,7 +279,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--cpus", type=int, default=1,
                    help="Kept for CLI compatibility; ignored")
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--checkpoint-dir", type=str, default=None)
+    p.add_argument("--checkpoint-dir", type=str, default=None,
+                   help="Directory for crash-recovery artifacts; a killed "
+                   "build re-run with the same inputs resumes after the last "
+                   "completed stage (removed on success)")
     device_flag(p)
     p.set_defaults(func=tool_newref)
 

@@ -38,8 +38,8 @@
 // 32 buckets: the accumulator of a thread is 16 (row, bucket) pairs (rows
 // g and g+8 of its warp's 16, buckets 8*i + 2*t + {0,1}).  The rows are
 // the A operand, from registers: the block's 64 target rows stay resident
-// in shared memory for the whole scan and each warp splits its fragment
-// as it goes.  The candidates are the B operand, from shared memory: they
+// in shared memory for the whole scan (up to 672 samples; wider rows
+// stream, see below) and each warp splits its fragment as it goes.  The candidates are the B operand, from shared memory: they
 // stream through a ring of 32-sample slices filled with cp.async (the
 // next slices load while this one computes), and each slice is split once
 // into TF32 hi and lo copies in wgmma's K-major core-matrix layout.
@@ -57,6 +57,19 @@
 // allow one block, 8 warps, per SM, too few to hide it.  A variant that
 // overlapped it with the next column block's wgmma through a second
 // accumulator was slower (PERF.md).
+//
+// Wide sample axes.  The resident row tile takes 64 * (s_pad + 4) floats
+// of shared memory, which caps s_pad at 672.  Above that the rows stream
+// too: the block's 64-row x 32-sample row slice rides through the same
+// cp.async ring beside the candidate slice, and each warp splits its A
+// fragment from the slice that landed.  The products, their order and the
+// cascades are the same as on the resident path, so the pools are too.
+// Its bound is the same operations bound (3 * 2*R*N*S at the TF32 peak);
+// what it adds is traffic, not work: the rows are read again for every
+// column block (R * S * 4 bytes * N_pad / L from L2, about as much as the
+// candidates), so each slice costs twice the copies and the ring twice the
+// shared memory (90 KB whatever the width).  The cascade still holds it
+// back first; no faster variant was tried.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -75,11 +88,14 @@ constexpr int NT = WN / 8;   // n8 column groups of an accumulator
 constexpr int PAD = 4;       // floats added to every shared-memory row
 constexpr int BSTRIDE = KC + PAD;
 constexpr int B_PIECES = CT * KC / 4 / THREADS;  // 16-byte copies a thread
+constexpr int A_PIECES = RT * KC / 4 / THREADS;  // the same, of a row slice
 constexpr unsigned NO_J = 0xFFFFu;  // column block of an empty slot
 constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory of a block
 
-// The resident row tile, the ring of raw slices, the split slice.
-size_t smem_floats(int s_pad) {
+// Resident: the row tile, the ring of raw candidate slices, the split
+// slice.  Streamed: the ring holds a row slice beside each candidate slice.
+size_t smem_floats(int s_pad, bool stream) {
+  if (stream) return (size_t)STAGES * (CT + RT) * BSTRIDE + 2 * CT * KC;
   return (size_t)RT * (s_pad + PAD) + (size_t)STAGES * CT * BSTRIDE +
          2 * CT * KC;
 }
@@ -176,6 +192,9 @@ __device__ __forceinline__ void insert(float (&cv)[DEPTH],
   if (v < dr || v != v) dr = v;
 }
 
+// STREAM: the rows stream through the ring with the candidates (any
+// s_pad); otherwise the row tile stays resident (s_pad <= 672).
+template <bool STREAM>
 __global__ void __launch_bounds__(THREADS, 1)
 knn_bucket_kernel(const float* __restrict__ rows,
                   const float* __restrict__ rnorm,
@@ -189,9 +208,13 @@ knn_bucket_kernel(const float* __restrict__ rows,
                   float* __restrict__ vals, int* __restrict__ idx,
                   float* __restrict__ drop) {
   extern __shared__ __align__(16) float smem[];
-  const int sa = s_pad + PAD;
-  float* As = smem;             // [RT][sa]: the block's rows, resident
-  float* Bs = smem + RT * sa;   // [STAGES][CT][BSTRIDE]: raw slices
+  // Row stride of the A operand in shared memory.
+  const int sa = STREAM ? BSTRIDE : s_pad + PAD;
+  // Resident: [RT][sa], the block's rows.  Streamed: [STAGES][RT][BSTRIDE],
+  // the row slices of the ring.
+  float* As = smem;
+  // [STAGES][CT][BSTRIDE]: raw candidate slices.
+  float* Bs = smem + (STREAM ? STAGES * RT * BSTRIDE : RT * sa);
   // The current slice split into its TF32 hi and lo halves, each
   // [KC/8][CT/8][2][8][4]: per 8-sample step, K-major core matrices of 8
   // candidates x 4 samples (128 bytes), the two of a step 128 bytes apart,
@@ -210,16 +233,29 @@ knn_bucket_kernel(const float* __restrict__ rows,
   const int n_k = s_pad / KC;
   const int n_slices = (n_pad / lanes) * n_k;
 
-  // The row tile (zeros past n_rows) joins the first slice's group.
-  const int a_vec = s_pad / 4;
-  for (int e = tid; e < RT * a_vec; e += THREADS) {
-    const int rr = e / a_vec, q = e - rr * a_vec;
-    float* dst = As + rr * sa + 4 * q;
-    if (row0 + rr < n_rows) {
-      cp_async16(dst, rows + (size_t)(row0 + rr) * s_pad + 4 * q);
-    } else {
-      *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (!STREAM) {
+    // The row tile (zeros past n_rows) joins the first slice's group.
+    const int a_vec = s_pad / 4;
+    for (int e = tid; e < RT * a_vec; e += THREADS) {
+      const int rr = e / a_vec, q = e - rr * a_vec;
+      float* dst = As + rr * sa + 4 * q;
+      if (row0 + rr < n_rows) {
+        cp_async16(dst, rows + (size_t)(row0 + rr) * s_pad + 4 * q);
+      } else {
+        *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
     }
+  }
+  // Streamed row slices: samples kc*KC + [0, KC) of the block's rows; a
+  // row past n_rows copies the last row (its results are never written).
+  int aso[A_PIECES];
+  size_t ago[A_PIECES];
+#pragma unroll
+  for (int i = 0; i < A_PIECES; ++i) {
+    const int e = tid + THREADS * i;
+    const int n = e / (KC / 4), q = e % (KC / 4);
+    aso[i] = n * BSTRIDE + 4 * q;
+    ago[i] = (size_t)min(row0 + n, n_rows - 1) * s_pad + 4 * q;
   }
 
   // Slice (j, kc): candidates j*L + col0 + [0, CT), samples kc*KC + [0,
@@ -245,6 +281,13 @@ knn_bucket_kernel(const float* __restrict__ rows,
       float* dst = Bs + ld_stage * (CT * BSTRIDE);
 #pragma unroll
       for (int i = 0; i < B_PIECES; ++i) cp_async16(dst + so[i], src + go[i]);
+      if (STREAM) {
+        const float* asrc = rows + ld_kc * KC;
+        float* adst = As + ld_stage * (RT * BSTRIDE);
+#pragma unroll
+        for (int i = 0; i < A_PIECES; ++i)
+          cp_async16(adst + aso[i], asrc + ago[i]);
+      }
       --ld_left;
       if (++ld_kc == n_k) {
         ld_kc = 0;
@@ -287,7 +330,7 @@ knn_bucket_kernel(const float* __restrict__ rows,
       for (int m = 0; m < DEPTH / 2; ++m) cj[nt][e][m] = 0xFFFFFFFFu;
     }
 
-  const float* a_row = As + (wr * WR + g) * sa + t;
+  const int a_off = (wr * WR + g) * sa + t;
   int kc = 0, j = 0, stage = 0;
 #pragma unroll 1
   for (int sl = 0; sl < n_slices; ++sl) {
@@ -321,7 +364,8 @@ knn_bucket_kernel(const float* __restrict__ rows,
           pcc[nt][c] = cchr[gb + nt * 8 + c];
         }
     }
-    const float* a = a_row + kc * KC;
+    const float* a = STREAM ? As + stage * (RT * BSTRIDE) + a_off
+                            : As + a_off + kc * KC;
     unsigned ah[KC / 8][4], al[KC / 8][4];
 #pragma unroll
     for (int kk = 0; kk < KC / 8; ++kk) {
@@ -409,16 +453,18 @@ extern "C" {
 int wcx_knn_bucket_depth(void) { return DEPTH; }
 int wcx_knn_bucket_col_tile(void) { return CT; }
 int wcx_knn_bucket_k_chunk(void) { return KC; }
-// The widest sample axis whose resident row tile fits shared memory.
-int wcx_knn_bucket_max_s_pad(void) {
-  const int spare = SMEM_LIMIT / (int)sizeof(float) - (int)smem_floats(0);
+// The widest sample axis whose row tile stays resident in shared memory;
+// a wider one streams its rows.
+int wcx_knn_bucket_resident_s_pad(void) {
+  const int spare =
+      SMEM_LIMIT / (int)sizeof(float) - (int)smem_floats(0, false);
   return (spare / RT) / KC * KC;
 }
 
 // Launch K1 on `stream`.  Requires lanes % CT == 0, n_pad % lanes == 0,
-// n_pad / lanes < 0xFFFF, s_pad % KC == 0, s_pad <= max_s_pad and 16-byte
-// aligned rows and cand (the wrapper checks and pads).  Returns the CUDA
-// error of the launch (0 on success).
+// n_pad / lanes < 0xFFFF, s_pad % KC == 0 and 16-byte aligned rows and
+// cand (the wrapper checks and pads).  Returns the CUDA error of the
+// launch (0 on success).
 int wcx_knn_bucket(const float* rows, const float* rnorm, const int* rchr,
                    const int* rstart, const int* rsize, int n_rows,
                    const float* cand, const float* cnorm, const int* cchr,
@@ -427,15 +473,17 @@ int wcx_knn_bucket(const float* rows, const float* rnorm, const int* rchr,
                    void* stream) {
   if (n_rows <= 0) return 0;
   if (lanes % CT || n_pad % lanes || n_pad / lanes >= (int)NO_J ||
-      s_pad % KC || s_pad > wcx_knn_bucket_max_s_pad())
+      s_pad <= 0 || s_pad % KC)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_floats(s_pad) * sizeof(float);
+  const bool stream_rows = s_pad > wcx_knn_bucket_resident_s_pad();
+  const size_t smem = smem_floats(s_pad, stream_rows) * sizeof(float);
+  auto kernel =
+      stream_rows ? knn_bucket_kernel<true> : knn_bucket_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      knn_bucket_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(lanes / CT, (n_rows + RT - 1) / RT);
-  knn_bucket_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+  kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
       rows, rnorm, rchr, rstart, rsize, n_rows, cand, cnorm, cchr, n_pad,
       s_pad, n_valid, sentinel, lanes, vals, idx, drop);
   return (int)cudaGetLastError();

@@ -30,15 +30,33 @@ def resolve_device(name: str | torch.device) -> torch.device:
 
     ``cuda`` raises when no CUDA device is present: the CPU is taken only
     when it is asked for."""
-    dev = torch.device(name)
+    try:
+        dev = torch.device(name)
+    except RuntimeError as e:
+        raise ValueError(f"unsupported device {name!r} (cuda, cuda:N or cpu)") from e
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {name!r} (cuda, cuda:N or cpu)")
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "--device cuda was requested but torch.cuda.is_available() is "
-            "False; pass --device cpu to run on the CPU"
+            f"--device {name} was requested but torch.cuda.is_available() "
+            "is False; pass --device cpu to run on the CPU"
         )
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {name!r} (cuda or cpu)")
+    if dev.index is not None and dev.index >= torch.cuda.device_count():
+        raise ValueError(
+            f"--device {name}: only {torch.cuda.device_count()} CUDA "
+            "device(s) are visible"
+        )
     return dev
+
+
+def resolve_devices(name: str | torch.device) -> list[torch.device]:
+    """The devices a ``--device`` value names: ``cuda`` every visible
+    card, ``cuda:N`` that card, ``cpu`` the CPU.  Raises as
+    :func:`resolve_device` does."""
+    dev = resolve_device(name)
+    if dev.type == "cuda" and dev.index is None:
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [dev]
 
 
 def work_dtype(device: torch.device) -> torch.dtype:

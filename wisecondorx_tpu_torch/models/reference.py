@@ -10,12 +10,20 @@ column subset of it.  Passes run one after the other.
 Quirk kept (SURVEY.md 2.9): the PCA-distance filter mutates the *shared*
 total mask through a slice view, so bins the A pass drops are absent from
 the later F/M passes too.
+
+The KNN search splits its rows over every process of a ``torchrun``-style
+run and over each process's devices (parallel/multihost.py), and with a
+checkpoint directory runs in row chunks whose results, like each pass's
+PCA and each finished pass, are saved as they complete
+(utils/checkpoint.py): a crashed build re-run with the same inputs
+resumes after its last saved stage and equals the uninterrupted build.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import os
 
 import numpy as np
 import torch
@@ -30,6 +38,12 @@ from wisecondorx_tpu_torch.ops import normalize as norm_ops
 from wisecondorx_tpu_torch.ops import pca as pca_ops
 from wisecondorx_tpu_torch.ops.common import median
 from wisecondorx_tpu_torch.ops.gmm import train_gender_model
+from wisecondorx_tpu_torch.parallel.multihost import (
+    all_agree,
+    knn_search_multihost,
+    process_index_count,
+)
+from wisecondorx_tpu_torch.utils.checkpoint import NewrefCheckpoint, fingerprint
 from wisecondorx_tpu_torch.utils.log import stage_timer
 
 
@@ -46,15 +60,33 @@ class NewrefConfig:
     #: Seed of the null-ratio sample draw (the reference is unseeded).
     seed: int | None = 0
     pca_components: int = 5
+    #: Directory for crash-recovery artifacts (None = off).  A killed build
+    #: re-run with the same inputs and directory resumes after the last
+    #: completed stage; see utils/checkpoint.py.
+    checkpoint_dir: str | None = None
+    #: KNN rows per checkpoint artifact when checkpointing is on.
+    knn_checkpoint_rows: int = 32768
+
+
+#: Keys of a finished pass dict (checkpoint round-trip) and the predict
+#: caches saved with it.
+_PASS_KEYS = (
+    "binsize", "mask", "bins_per_chr", "masked_bins_per_chr",
+    "masked_bins_per_chr_cum", "pca_components", "pca_mean",
+    "indexes", "distances", "null_ratios", "wcx_weights", "wcx_cutoffs",
+)
 
 
 def build_reference(samples_with_binsize: list[tuple[dict, int]],
                     config: NewrefConfig, device: torch.device,
-                    _null_chooser=None):
+                    _null_chooser=None, devices=None):
     """Build a normalization reference from negative-control samples.
 
     ``samples_with_binsize``: (sample dict, binsize) pairs as loaded from
-    convert npz files.  ``_null_chooser(gender, n_samples)`` overrides the
+    convert npz files.  ``device`` holds the cohort and runs the PCA;
+    ``devices`` (default ``[device]``) share each KNN search's rows, and
+    in a multi-process run each process searches its share on its own
+    ``devices``.  ``_null_chooser(gender, n_samples)`` overrides the
     seeded null-ratio sample draw (parity tests).
 
     Returns (passes dict of numpy arrays in the npz schema, meta dict).
@@ -103,19 +135,34 @@ def build_reference(samples_with_binsize: list[tuple[dict, int]],
                 "male gonosomes."
             )
 
+    ckpt = _open_checkpoint(cfg, matrix)
     with stage_timer("newref.cohort_upload"):
         cohort = torch.as_tensor(matrix, dtype=work_dtype(device),
                                  device=device)
     passes = {}
     for gender, cols in plan:
+        saved = _restore(ckpt, f"pass_{gender}")
+        if saved is not None:
+            logging.info("Pass %s restored from checkpoint", gender)
+            # The PCA-distance filter mutated the shared mask during this
+            # pass; replay that mutation for the later passes.
+            after = saved["total_mask_after"]
+            total_mask[: len(after)] &= after
+            passes[gender] = {k: saved[k] for k in _PASS_KEYS if k in saved}
+            passes[gender]["binsize"] = int(saved["binsize"])
+            continue
         with stage_timer(f"newref.pass_{gender}"):
             passes[gender] = _build_pass(
-                gender, cohort, cols, layout, total_mask, cfg, _null_chooser
+                gender, cohort, cols, layout, total_mask, cfg, _null_chooser,
+                ckpt, devices or [device],
             )
         with stage_timer(f"newref.pass_{gender}.predict_cache"):
             passes[gender].update(
                 _predict_cache(gender, passes[gender]["distances"])
             )
+        pass_bins = layout.truncated(LAST_CHR[gender]).total_bins
+        ckpt.save(f"pass_{gender}", total_mask_after=total_mask[:pass_bins],
+                  **passes[gender])
 
     # Bit-packed distance < cutoff masks at the default --maskrepeats 5.
     cutoffs = passes["A"]["wcx_cutoffs"]
@@ -131,7 +178,36 @@ def build_reference(samples_with_binsize: list[tuple[dict, int]],
         "has_female": "F" in passes,
         "has_male": "M" in passes,
     }
+    ckpt.done()
+    if ckpt.enabled and ckpt.dir != cfg.checkpoint_dir:
+        try:  # the per-process directories' parent, once all are gone
+            os.rmdir(cfg.checkpoint_dir)
+        except OSError:
+            pass
     return passes, meta
+
+
+def _open_checkpoint(cfg, matrix) -> NewrefCheckpoint:
+    """The build's checkpoint store (disabled without a directory).  Each
+    process of a multi-process run keeps its own subdirectory, so no two
+    processes write one file."""
+    if not cfg.checkpoint_dir:
+        return NewrefCheckpoint(None)
+    rank, world = process_index_count()
+    directory = cfg.checkpoint_dir
+    if world > 1:
+        directory = os.path.join(directory, f"rank{rank}")
+    return NewrefCheckpoint(directory, fingerprint(matrix, cfg))
+
+
+def _restore(ckpt: NewrefCheckpoint, name: str):
+    """A saved stage, or None.  In a multi-process run a stage is restored
+    only where every process has it, so all skip the same searches and
+    their all-gathers."""
+    if not ckpt.enabled:
+        return None
+    saved = ckpt.load(name)
+    return saved if all_agree(saved is not None) else None
 
 
 def cohort_matrix(samples_with_binsize: list[tuple[dict, int]],
@@ -178,32 +254,25 @@ def cohort_matrix(samples_with_binsize: list[tuple[dict, int]],
     return matrix, layout, genders, trained_cutoff, nipt
 
 
-def _build_pass(gender, cohort, cols, layout, total_mask, cfg, null_chooser):
+def _build_pass(gender, cohort, cols, layout, total_mask, cfg, null_chooser,
+                ckpt, devices):
     """One reference pass.  ``total_mask`` is mutated in place by the
     PCA-distance filter through the ``pass_mask`` view."""
     tl = layout.truncated(LAST_CHR[gender])
     pass_mask = total_mask[: tl.total_bins]  # view: the aliasing is intended
-    sub = cohort[: tl.total_bins]
-    if not np.all(cols):
-        sub = sub[:, torch.as_tensor(np.nonzero(cols)[0], device=cohort.device)]
 
-    with stage_timer(f"newref.pass_{gender}.pca"):
-        corrected, components, mean = _normalize_and_pca(sub, pass_mask, cfg)
-        # PCA-distance bin filter: drop bins far from the median profile.
-        dist_to_med = _pca_distance(corrected).cpu().numpy().astype(np.float64)
-        mad = np.median(np.abs(dist_to_med - np.median(dist_to_med)))
-        cutoff = max(np.median(dist_to_med) + 10 * mad, 5.0)
-        bad_bins = dist_to_med > cutoff
-        if np.any(bad_bins):
-            logging.info(
-                "Removing %d anomalous bins based on PCA distance "
-                "(cutoff=%.4f)", int(bad_bins.sum()), cutoff,
-            )
-            masked_indices = np.where(pass_mask)[0]
-            pass_mask[masked_indices[bad_bins]] = False  # mutates total_mask
-            corrected, components, mean = _normalize_and_pca(
-                sub, pass_mask, cfg
-            )
+    prep = _restore(ckpt, f"prep_{gender}")
+    if prep is not None:
+        logging.info("Pass %s: PCA restored from checkpoint", gender)
+        pass_mask &= prep["mask_after"]  # replay the filter's mutation
+        corrected = torch.as_tensor(prep["corrected"], device=cohort.device)
+        components, mean = prep["components"], prep["mean"]
+    else:
+        corrected, components, mean = _pass_pca(gender, cohort, cols, tl,
+                                                pass_mask, cfg)
+        if ckpt.enabled:
+            ckpt.save(f"prep_{gender}", corrected=corrected.cpu().numpy(),
+                      components=components, mean=mean, mask_after=pass_mask)
 
     ml = MaskedLayout(tl, pass_mask.copy())
     n_masked = ml.n_masked
@@ -213,26 +282,42 @@ def _build_pass(gender, cohort, cols, layout, total_mask, cfg, null_chooser):
     chosen = np.asarray(null_chooser(gender, corrected.shape[1]))
 
     with stage_timer(f"newref.pass_{gender}.knn"):
-        stats: dict = {}
-        idx, dist = knn_ops.knn_search(
-            corrected, ml.chr_of_masked_bin, ml.masked_chr_starts,
-            ml.masked_bins_per_chr, ref_size=cfg.refsize,
-            row_range=None if gender == "A" else (r0, n_masked), stats=stats,
-        )
-        if stats.get("flagged_rows"):
-            logging.info(
-                "KNN pass %s: %d of %d rows rerun exactly", gender,
-                stats["flagged_rows"], stats["n_rows"],
-            )
         indexes = np.zeros((n_masked, cfg.refsize), dtype=np.int32)
-        indexes[r0:] = idx.cpu().numpy()
-        np_dtype = np.float32 if dist.dtype == torch.float32 else np.float64
+        # The kernel path returns float32 distances, the exact path the
+        # data's type.
+        np_dtype = (np.float32 if corrected.is_cuda
+                    or corrected.dtype == torch.float32 else np.float64)
         distances = np.ones((n_masked, cfg.refsize), dtype=np_dtype)
-        distances[r0:] = dist.cpu().numpy()
+        # With a checkpoint, row chunks of one artifact each: a killed
+        # build loses at most one chunk of search.
+        step = (max(1024, cfg.knn_checkpoint_rows) if ckpt.enabled
+                else max(n_masked - r0, 1))
+        for a in range(r0, n_masked, step):
+            b = min(a + step, n_masked)
+            part = _restore(ckpt, f"knn_{gender}_{a}_{b}")
+            if part is None:
+                stats: dict = {}
+                idx, dist = knn_search_multihost(
+                    corrected, ml.chr_of_masked_bin, ml.masked_chr_starts,
+                    ml.masked_bins_per_chr, ref_size=cfg.refsize,
+                    row_range=(a, b), devices=devices, stats=stats,
+                )
+                if stats.get("flagged_rows"):
+                    logging.info(
+                        "KNN pass %s: %d of %d rows rerun exactly", gender,
+                        stats["flagged_rows"], stats["n_rows"],
+                    )
+                ckpt.save(f"knn_{gender}_{a}_{b}", idx=idx, dist=dist)
+            else:
+                idx, dist = part["idx"], part["dist"]
+            indexes[a:b] = idx
+            distances[a:b] = dist
 
     with stage_timer(f"newref.pass_{gender}.nulls"):
+        # From the whole index table, after every part has been gathered.
         null_ratios = knn_ops.compute_null_ratios(
-            corrected, idx, chosen, placeholder_rows=r0
+            corrected, torch.as_tensor(indexes[r0:], device=corrected.device),
+            chosen, placeholder_rows=r0,
         ).cpu().numpy()
 
     return {
@@ -247,6 +332,33 @@ def _build_pass(gender, cohort, cols, layout, total_mask, cfg, null_chooser):
         "distances": distances,
         "null_ratios": null_ratios,
     }
+
+
+def _pass_pca(gender, cohort, cols, tl, pass_mask, cfg):
+    """The pass's depth normalization and PCA, with the PCA-distance bin
+    filter, which drops bins far from the median profile from
+    ``pass_mask`` (and so from the shared total mask) and fits again.
+    Returns (corrected, components, mean)."""
+    sub = cohort[: tl.total_bins]
+    if not np.all(cols):
+        sub = sub[:, torch.as_tensor(np.nonzero(cols)[0], device=cohort.device)]
+    with stage_timer(f"newref.pass_{gender}.pca"):
+        corrected, components, mean = _normalize_and_pca(sub, pass_mask, cfg)
+        dist_to_med = _pca_distance(corrected).cpu().numpy().astype(np.float64)
+        mad = np.median(np.abs(dist_to_med - np.median(dist_to_med)))
+        cutoff = max(np.median(dist_to_med) + 10 * mad, 5.0)
+        bad_bins = dist_to_med > cutoff
+        if np.any(bad_bins):
+            logging.info(
+                "Removing %d anomalous bins based on PCA distance "
+                "(cutoff=%.4f)", int(bad_bins.sum()), cutoff,
+            )
+            masked_indices = np.where(pass_mask)[0]
+            pass_mask[masked_indices[bad_bins]] = False  # mutates total_mask
+            corrected, components, mean = _normalize_and_pca(
+                sub, pass_mask, cfg
+            )
+    return corrected, components, mean
 
 
 def _predict_cache(gender: str, distances: np.ndarray) -> dict:

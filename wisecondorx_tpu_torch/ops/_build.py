@@ -110,7 +110,7 @@ def load() -> ctypes.CDLL:
             lib.wcx_knn_topk.argtypes = [p, p, p, i, i, i, i, p, p, p, p]
             lib.wcx_knn_topk.restype = i
             for name in ("wcx_knn_bucket_depth", "wcx_knn_bucket_col_tile",
-                         "wcx_knn_bucket_k_chunk", "wcx_knn_bucket_max_s_pad",
+                         "wcx_knn_bucket_k_chunk", "wcx_knn_bucket_resident_s_pad",
                          "wcx_knn_topk_pool_max"):
                 getattr(lib, name).argtypes = []
                 getattr(lib, name).restype = i

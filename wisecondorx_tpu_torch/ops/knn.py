@@ -70,6 +70,14 @@ def knn_search_exact(
     device.  Returns (indexes int64[rows, ref_size], distances
     [rows, ref_size]) on ``data.device`` with indexes in
     own-chromosome-excluded space.
+
+    Row tiles are aligned to multiples of ``row_tile`` in ``data`` and
+    always span all of their rows, whatever ``row_range`` asks for: a row's
+    distances come from one product of one shape and the same rows, so a
+    search split into row ranges (checkpoint chunks, devices, processes)
+    equals the whole search bit for bit.  A matrix product's rows do
+    depend on the rows that share it (a product of 1-3 rows differs from
+    the same rows of a larger one in the last bits).
     """
     n = data.shape[0]
     dev, dtype = data.device, data.dtype
@@ -87,8 +95,8 @@ def knn_search_exact(
     )
     norms = (data * data).sum(dim=1)
     out_i, out_v = [], []
-    for a in range(r0, r1, row_tile):
-        b = min(a + row_tile, r1)
+    for a in range(r0 - r0 % row_tile, r1, row_tile):
+        b = min(a + row_tile, n)
         rows = data[a:b]
         rchr = chr_t[a:b, None]
         rstart = starts[chr_t[a:b]][:, None]
@@ -118,8 +126,9 @@ def knn_search_exact(
                                                 value=torch.inf)
                 run_i = torch.nn.functional.pad(run_i, (0, pad), value=-1)
         i, v = finish_result(run_v, run_i)
-        out_i.append(i)
-        out_v.append(v)
+        keep = slice(max(r0, a) - a, min(r1, b) - a)
+        out_i.append(i[keep])
+        out_v.append(v[keep])
     return torch.cat(out_i), torch.cat(out_v)
 
 

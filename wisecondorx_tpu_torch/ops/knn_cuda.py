@@ -26,6 +26,8 @@ tensor launches the kernel or raises.  There is no fallback.
 
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
 
@@ -48,13 +50,25 @@ ROW_CHUNK = 8192
 #: csrc/knn_bucket.cu).
 S_MULTIPLE = 32
 
+#: Rows of every exact rerun product: a batch of flagged rows is padded
+#: to this count, so a row's product has one shape whichever rows were
+#: flagged beside it.
+RERUN_ROWS = 256
+
 #: Launches of each kernel since the last :func:`reset_launch_counts`.
 LAUNCHES = {"knn_bucket": 0, "knn_topk": 0}
+_count_lock = threading.Lock()  # searches on several devices count at once
 
 
 def reset_launch_counts() -> None:
-    for key in LAUNCHES:
-        LAUNCHES[key] = 0
+    with _count_lock:
+        for key in LAUNCHES:
+            LAUNCHES[key] = 0
+
+
+def _count_launch(name: str) -> None:
+    with _count_lock:
+        LAUNCHES[name] += 1
 
 
 def _round_up(x: int, m: int) -> int:
@@ -134,17 +148,12 @@ def bucket_scan(rows, rnorm, rchr, rstart, rsize, cand, cnorm, cchr,
             f"K1 is compiled for depth {lib.wcx_knn_bucket_depth()}, got {depth}"
         )
     ct, kc = lib.wcx_knn_bucket_col_tile(), lib.wcx_knn_bucket_k_chunk()
-    max_s_pad = lib.wcx_knn_bucket_max_s_pad()
     r, s_pad = rows.shape
     n_pad = cand.shape[0]
-    if lanes % ct or n_pad % lanes or s_pad % kc:
+    if lanes % ct or n_pad % lanes or s_pad % kc or s_pad == 0:
         raise ValueError(
             f"K1 needs lanes % {ct} == 0, n_pad % lanes == 0 and "
             f"s_pad % {kc} == 0 (lanes={lanes}, n_pad={n_pad}, s_pad={s_pad})"
-        )
-    if s_pad > max_s_pad:
-        raise ValueError(
-            f"K1 keeps its row tile in shared memory: s_pad {s_pad} > {max_s_pad}"
         )
     if n_pad >= 2**31 or n_pad // lanes >= 0xFFFF:
         raise ValueError("K1 indexes candidates with int32 and column "
@@ -172,7 +181,7 @@ def bucket_scan(rows, rnorm, rchr, rstart, rsize, cand, cnorm, cchr,
     )
     if err:
         raise RuntimeError(f"K1 (knn_bucket) launch failed: CUDA error {err}")
-    LAUNCHES["knn_bucket"] += 1
+    _count_launch("knn_bucket")
     return vals, idx, drop
 
 
@@ -238,7 +247,7 @@ def extract_topk(vals, idx, drop, ref_size: int):
     )
     if err:
         raise RuntimeError(f"K2 (knn_topk) launch failed: CUDA error {err}")
-    LAUNCHES["knn_topk"] += 1
+    _count_launch("knn_topk")
     return top_v, top_i, flagged.bool()
 
 
@@ -340,15 +349,17 @@ def knn_search_cuda(
     top_v, top_i = torch.cat(vals_out), torch.cat(idx_out)
     flagged = torch.nonzero(torch.cat(flags)).flatten()
 
-    for fs in range(0, flagged.numel(), 1024):
-        rows_f = flagged[fs : fs + 1024]
-        g_rows = rows_f + r0
+    for fs in range(0, flagged.numel(), RERUN_ROWS):
+        rows_f = flagged[fs : fs + RERUN_ROWS]
+        m = rows_f.numel()
+        padded = torch.cat([rows_f, rows_f[:1].expand(RERUN_ROWS - m)])
+        g_rows = padded + r0
         v, e = exact_rows(
-            cand[g_rows], cnorm[g_rows], cchr[g_rows], rstart_all[rows_f],
-            rsize_all[rows_f], cand, cnorm, cchr, n, sentinel, ref_size,
+            cand[g_rows], cnorm[g_rows], cchr[g_rows], rstart_all[padded],
+            rsize_all[padded], cand, cnorm, cchr, n, sentinel, ref_size,
         )
-        top_v[rows_f] = v
-        top_i[rows_f] = e
+        top_v[rows_f] = v[:m]
+        top_i[rows_f] = e[:m]
     if stats is not None:
         stats.update(flagged_rows=int(flagged.numel()), n_rows=n_rows,
                      scale=scale)

@@ -1,16 +1,20 @@
-"""Batched prediction of a plate of samples on one device.
+"""Batched prediction of a plate of samples on one or several devices.
 
 Counterpart of wisecondorx_tpu/parallel/batch.py without the device mesh:
 a :class:`ReferenceLoader` streams the autosomal pass and the gonosomal
 passes the plate's samples resolve to, once for the plate, and the PCA
 projection and the three-round normalization run over chunks of samples
-stacked on a leading axis.  Host pre- and post-processing stay per
-sample.
+stacked on a leading axis.  Every chunk is padded to ``chunk`` samples,
+so a sample's products have one shape wherever the plate was split.  With
+several devices the plate splits into contiguous parts, each on its own
+device, with its own loader and host thread.  Host pre- and
+post-processing stay per sample.
 """
 
 from __future__ import annotations
 
 import logging
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -39,6 +43,9 @@ def _run_pass_batched(samples, ref_pass, tables: PassTables, chunk: int):
             norm_ops.coverage_normalize_and_mask(s, bins_per_chr, mask)
             for s in samples[s0 : s0 + chunk]
         ])
+        n_real = len(block)
+        if n_real < chunk:  # the last chunk: pad with its last sample
+            block = np.concatenate([block, block[-1:].repeat(chunk - n_real, 0)])
         projected = pca_ops.project_sample(
             torch.as_tensor(block, dtype=tables.mean.dtype, device=dev),
             tables.components, tables.mean,
@@ -51,21 +58,50 @@ def _run_pass_batched(samples, ref_pass, tables: PassTables, chunk: int):
         out.extend(
             (z[i], r[i], tables.weights, sizes[i].astype(np.float64),
              float(m_lr[i]), float(m_z[i]))
-            for i in range(len(block))
+            for i in range(n_real)
         )
     return out
 
 
-def predict_batch(samples_with_binsize, loader: ReferenceLoader,
-                  cfg: PredictConfig, chunk: int = 8,
+def predict_batch(samples_with_binsize, reference: str, cfg: PredictConfig,
+                  devices, chunk: int = 8,
                   skip_errors: bool = False) -> list[BinResults | None]:
     """Per-bin results of a plate of samples against the reference
-    ``loader`` streams, on its device, in the plate's order.
+    ``.npz`` at ``reference``, in the plate's order.
+
+    The plate splits into contiguous parts over ``devices``, each run on
+    its own thread with its own :class:`ReferenceLoader`; the results
+    equal one device's bit for bit.
 
     ``skip_errors``: a sample that fails preparation (for example one
     missing chromosomes) is logged and left as ``None`` instead of
     aborting the plate."""
     cfg.validate()
+    devices = [torch.device(d) for d in devices]
+    bounds = np.linspace(0, len(samples_with_binsize),
+                         len(devices) + 1).astype(int)
+
+    def run(dev, a, b):
+        with ReferenceLoader(reference, dev) as loader:
+            return _predict_part(samples_with_binsize[a:b], loader, cfg,
+                                 chunk, skip_errors, first=a)
+
+    jobs = [(dev, int(a), int(b))
+            for dev, a, b in zip(devices, bounds[:-1], bounds[1:]) if b > a]
+    if len(jobs) <= 1:
+        parts = [run(*job) for job in jobs]
+    else:
+        with ThreadPoolExecutor(max_workers=len(jobs),
+                                thread_name_prefix="wcx-batch-device") as pool:
+            parts = list(pool.map(lambda job: run(*job), jobs))
+    return [r for part in parts for r in part]
+
+
+def _predict_part(samples_with_binsize, loader: ReferenceLoader,
+                  cfg: PredictConfig, chunk: int, skip_errors: bool,
+                  first: int = 0) -> list[BinResults | None]:
+    """:func:`predict_batch` of a contiguous part of the plate that starts
+    at sample ``first``, on ``loader``'s device."""
     prepped, ok_idx = [], []
     for i, (sample, binsize) in enumerate(samples_with_binsize):
         try:
@@ -76,7 +112,8 @@ def predict_batch(samples_with_binsize, loader: ReferenceLoader,
         except Exception as e:
             if not skip_errors:
                 raise
-            logging.error("Skipping sample %d of the plate: %s", i + 1, e)
+            logging.error("Skipping sample %d of the plate: %s",
+                          first + i + 1, e)
     results: list = [None] * len(samples_with_binsize)
     if not prepped:
         return results
