@@ -30,9 +30,19 @@ Phases, each printing one JSON line on stdout (logs go to stderr):
    calls equal to its single predict's;
 7. cbs_stream -- on the trisomy-21 sample's CBS jobs: one round's Threefry
    keys equal on CUDA and the CPU, the first-level decisions of the device
-   stream equal on both, and the sample's CBS time with the device and
-   the host permutation stream on the card;
-8. kernels -- at the A-pass shape of the reference newref wrote (its mask
+   stream equal on both, the sample's CBS time with the device and the host
+   permutation stream on the card, and one whole device-stream round
+   (``perm_round_device``) timed beside its bound (:func:`_cbs_round_bound`);
+8. plots -- ``predict --bed --plot`` of the trisomy-21 sample through the
+   CLI, timed with its scene, raster and encode stages; every figure
+   decoded with ``read_png`` at its pixel size; gain-coloured pixels across
+   chr21's gain dots on the genome-wide figure, none in chr1 and none
+   outside a gain segment; every scene of the sample rendered again on the
+   CPU and equal to the card's PNG bit for bit; ``predict-batch --bed
+   --plot`` on the first four plate samples (every table and figure of
+   each); ``newref --plotyfrac`` on the cohort (exit 0, a 1600 x 600 PNG,
+   no reference);
+9. kernels -- at the A-pass shape of the reference newref wrote (its mask
    and layout; rows = masked bins, 200 samples): K1 and K2 against their
    plain PyTorch versions on integer-valued inputs, where every distance is
    exact (tolerance 0), and K2 bit for bit on its edge fixtures
@@ -44,29 +54,29 @@ Phases, each printing one JSON line on stdout (logs go to stderr):
    A-pass neighbours against the exact float64 search of the same
    PCA-corrected rows (neighbour-set agreement, mean >= 99.9 %, min >= 299
    of 300; median distance relative error <= 1e-6);
-9. checkpoint -- newref with ``--checkpoint-dir``, stopped in process right
+10. checkpoint -- newref with ``--checkpoint-dir``, stopped in process right
    after it saves its first ``knn_A_*`` artifact (``NewrefCheckpoint.save``
    patched), then run again: it resumes, writes a reference equal in every
    member to the newref phase's, removes the directory, and launches K1
    fewer times than the full build;
-10. multidevice -- ``knn_search_multidevice`` on the A pass and
+11. multidevice -- ``knn_search_multidevice`` on the A pass and
    ``predict_batch`` on the plate with the card listed twice (two parts,
    two host threads): equal bit for bit to one device;
-11. multiproc -- newref and predict-batch as two worker processes on the
+12. multiproc -- newref and predict-batch as two worker processes on the
    one card, each with torchrun's environment on 127.0.0.1 and a timeout:
    process 0's reference equals the newref phase's in every member, both
    processes launched both kernels, and the two plate shards together
    write every sample's outputs byte-equal to the predict_batch phase's;
-12. wide -- newref through the CLI on 720 controls (360 F + 360 M) at 50
+13. wide -- newref through the CLI on 720 controls (360 F + 360 M) at 50
    kb, genome_scale 0.25, so the A pass's s_pad (736) is above the 672 at
-   which K1 streams its rows; its stored neighbours meet the bar of phase 8
+   which K1 streams its rows; its stored neighbours meet the bar of phase 9
    against the exact float64 search; and K1 against its plain version
    (exact) at the A-pass row-chunk shape with 1,000 and 4,096 samples, each
    timed beside its bound.
 
 The kernels' launch counters are set to 0 just before newref and read just
 after predict: both kernels must have run on that path (predict-batch runs
-no KNN kernel).  Each later path that searches (the resumed newref, the
+no KNN kernel, nor do the plots).  Each later path that searches (the resumed newref, the
 two-device search, each worker's newref, the wide newref) is read the same
 way and must have launched both kernels too.  Then one JSON line lists the
 kernels (K1 with its wide-shape times), and the last line is
@@ -109,6 +119,24 @@ MAX_DIST_REL_ERR = 1e-6
 #: cores, dense, and device memory.
 H100_TF32_FLOPS = 495e12
 H100_BYTES_PER_S = 3.35e12
+#: FP32 and FP64 outside the tensor cores (NVIDIA's H100 SXM data sheet),
+#: and 32-bit integer operations: 64 INT32 lanes per SM (Hopper
+#: architecture whitepaper) x 132 SMs x 1.98 GHz boost clock.
+H100_FP32_FLOPS = 67e12
+H100_FP64_FLOPS = 34e12
+H100_INT32_OPS = 64 * 132 * 1.98e9
+#: 32-bit integer operations of one Threefry-2x32 block (ops/cbs.py
+#: threefry2x32): 2 key additions, 20 rounds of add, two shifts, or and
+#: xor, and 5 key injections of 3 additions.
+THREEFRY_OPS = 2 + 20 * 5 + 5 * 3
+#: Floating-point operations of one arc's |T| (ops/cbs.py _tstat_block):
+#: 4 differences of cumulative sums, 2 quotients, a difference, 2
+#: reciprocals, a sum, rsqrt, a product, abs and the running max.
+ARC_OPS = 14
+#: The plots phase: the plate samples it runs predict-batch --plot on, and
+#: the pixel sizes of the figures (matplotlib's figsize x dpi).
+PLOT_PLATE = 4
+GENOME_WIDE_PX, CHROMOSOME_PX, YFRAC_PX = (1600, 2240), (1200, 1680), (600, 1600)
 #: K2's edge fixtures: rows of pools of 64 buckets x 4 deep, k = 100.
 EDGE_ROWS, EDGE_LANES, EDGE_DEPTH, EDGE_K = 8, 64, 4, 100
 #: The wide cohort: 720 controls put the A pass's sample axis (s_pad 736)
@@ -489,7 +517,7 @@ def phase_cbs_stream(ref, case, device):
              if len(x) >= 2 * run_cfg.min_width], run_cfg)
 
     # One round's keys: the first group, as its first round allots rows.
-    (n_pad, _), items = first_level(cfg)[0]
+    (n_pad, mode), items = first_level(cfg)[0]
     items = items[: cfg.seg_batch]
     b = max(64, cfg.perm_batch)
     active = list(range(len(items)))
@@ -506,6 +534,22 @@ def phase_cbs_stream(ref, case, device):
     keys_ms = cuda_ms(round_keys(device))
     keys_shape = list(keys_cpu.shape)
     del keys_cpu
+
+    # One whole round (keys, shuffle, arc statistic) at the same shape,
+    # timed beside its bound.
+    w_seg, wx_seg, n_seg_t = cbs._seg_tables(items, jobs, n_pad, device)
+    round_shape = [len(items), n_pad, mode]
+    lengths = cbs._group_lengths(n_pad, cfg, mode)
+    seg, words = cbs._round_rows(items, active, counts, salts, device)
+    live = torch.ones(len(seg), dtype=torch.bool, device=device)
+    obs0 = torch.zeros(len(items), dtype=w_seg.dtype, device=device)
+    lengths_t = torch.as_tensor(lengths, device=device)
+    round_ms = cuda_ms(lambda: cbs.perm_round_device(
+        cbs.prng_key(cfg.seed), w_seg, wx_seg, n_seg_t, seg, live, *words, obs0,
+        lengths_t, cfg.min_width, cfg.kmax))
+    round_bound = _cbs_round_bound(n_seg[seg.cpu().numpy()], n_seg, n_pad,
+                                   w_seg.element_size(), lengths, cfg)
+    del w_seg, wx_seg
 
     # First-level decisions of the device stream on both devices.
     check_cfg = cbs.CBSConfig(alpha=0.025, nperm=40, seed=0)
@@ -537,6 +581,8 @@ def phase_cbs_stream(ref, case, device):
     emit("cbs_stream", jobs=len(jobs), sizes=[len(x) for x, _ in jobs],
          keys_round_shape=keys_shape, keys_equal=keys_equal, keys_ms=keys_ms,
          keys_per_s=keys_shape[0] * keys_shape[1] / keys_ms * 1e3,
+         round_segments_n_pad_mode=round_shape, round_ms=round_ms,
+         round_bound=round_bound,
          decisions_equal=decisions["card"] == decisions["cpu"],
          first_level=decisions["card"], first_level_splits=splits,
          cbs_device_s=round(times["device"][0], 3),
@@ -547,6 +593,243 @@ def phase_cbs_stream(ref, case, device):
         raise AssertionError("Threefry keys differ between CUDA and the CPU")
     if decisions["card"] != decisions["cpu"]:
         raise AssertionError("device-stream decisions differ between CUDA and the CPU")
+
+
+def _png_shapes(directory):
+    """{file name: decoded image shape} of the PNGs in ``directory``, each
+    read with read_png (CRCs checked)."""
+    from wisecondorx_tpu_torch.output.png import read_png
+
+    return {name: read_png(os.path.join(directory, name)).shape
+            for name in sorted(os.listdir(directory))}
+
+
+def _plot_dir_problems(directory, n_chr):
+    """Problems of a --plot directory: the genome-wide figure and one
+    figure per chromosome, at their pixel sizes."""
+    shapes = _png_shapes(directory)
+    problems = []
+    if shapes.get("genome_wide.png") != GENOME_WIDE_PX + (3,):
+        problems.append(f"{directory}: genome_wide.png {shapes.get('genome_wide.png')}")
+    chrs = {n: v for n, v in shapes.items() if n.startswith("chr")}
+    if len(chrs) != n_chr or any(v != CHROMOSOME_PX + (3,) for v in chrs.values()):
+        problems.append(f"{directory}: chromosome figures {chrs}")
+    return problems
+
+
+def _chromosomes_with_data(outid):
+    """How many chromosomes of a predict output's bins table hold a ratio
+    (the plots draw a ratio of 0 as missing, and a chromosome without one
+    gets no figure)."""
+    import math
+
+    chrom = set()
+    with open(outid + "_bins.bed") as f:
+        next(f)
+        for line in f:
+            row = line.split("\t")
+            ratio = float(row[4])
+            if math.isfinite(ratio) and ratio != 0:
+                chrom.add(row[0])
+    return len(chrom)
+
+
+def _gain_pixels(image, scene, bins, segments, zscore):
+    """Gain-coloured pixels of the genome-wide figure's main axes, leaving
+    out the constitutional 3n line and the legend, which take that colour
+    too: (share of the pixel columns of chr21's gain dots holding one,
+    count in chr1's columns, count outside the columns of every gain
+    segment's dots)."""
+    import numpy as np
+
+    from wisecondorx_tpu_torch.output import layout as L
+    from wisecondorx_tpu_torch.output import plots, raster
+
+    ax = scene.axes[0]
+    r0, r1, c0, c1 = raster._clip_rect(scene, ax)
+    gain = np.all(image == np.array(raster.rgb8(plots.COLOR_C), np.uint8), axis=2)
+    mask = np.zeros_like(gain)
+    mask[r0:r1, c0:c1] = gain[r0:r1, c0:c1]
+    for line in ax.artists:
+        if isinstance(line, L.Line) and tuple(line.color[:3]) == plots.COLOR_C:
+            y = L.to_pixel(scene, ax, [0.0], line.y[:1])[1][0]
+            w = max(line.lw * scene.dpi / 72, 1.0)
+            a, b = raster.span(y - w / 2, y + w / 2)
+            mask[max(a, 0):b] = False
+    lr0, lr1, lc0, lc1 = raster.legend_layout(scene, ax)[0]
+    mask[max(lr0, 0):lr1, max(lc0, 0):lc1] = False
+    dots = next(a for a in ax.artists if isinstance(a, L.Scatter))
+    radius = float(np.sqrt(dots.sizes.max()) * scene.dpi / 72 / 2) + 1
+    n_chr = 24 if bins.ref_gender == "M" else 23
+    ends = np.cumsum([len(bins.results_r[c]) for c in range(n_chr)])
+    starts = ends - [len(bins.results_r[c]) for c in range(n_chr)]
+
+    def cols(lo_bin, hi_bin, pad):
+        x = L.to_pixel(scene, ax, np.array([lo_bin, hi_bin], float), np.zeros(2))[0]
+        return slice(max(int(np.floor(x[0] - pad)), 0), int(np.ceil(x[1] + pad)))
+
+    # chr21's gain dots (inside the view): the columns of their centres.
+    in21 = ((dots.x >= starts[20]) & (dots.x < ends[20])
+            & np.all(dots.colors == plots.COLOR_C, axis=1)
+            & (dots.y >= ax.ylim[0]) & (dots.y <= ax.ylim[1]))
+    centre_cols = np.unique(np.floor(L.to_pixel(scene, ax, dots.x[in21],
+                                                 dots.y[in21])[0]).astype(int))
+    chr21 = mask[:, centre_cols].any(axis=0) if len(centre_cols) else np.zeros(1)
+    chr1 = int(mask[:, cols(starts[0], ends[0] - 1, 0)].sum())
+    allowed = np.zeros(mask.shape[1], bool)
+    for chrom, lo, hi, z, _ in segments:
+        if not isinstance(z, str) and z > zscore:
+            allowed[cols(starts[chrom] + lo, starts[chrom] + hi - 1, radius)] = True
+    return float(chr21.mean()), chr1, int(mask[:, ~allowed].sum())
+
+
+def phase_plots(ref, t21, plate, files, device):
+    """``predict --bed --plot`` of the trisomy-21 sample through the CLI,
+    timed with its stages; every figure decoded at its size; gain-coloured
+    pixels across chr21 and nowhere outside a gain segment; every scene of
+    that sample rendered again on the CPU, equal to the card's PNGs bit for
+    bit; ``predict-batch --bed --plot`` on the first PLOT_PLATE plate
+    samples (every file of every sample); ``newref --plotyfrac`` on the
+    cohort (exit 0, a 1600 x 600 PNG, no reference)."""
+    import numpy as np
+    import torch
+
+    from wisecondorx_tpu_torch import cli
+    from wisecondorx_tpu_torch.output import plots
+    from wisecondorx_tpu_torch.output.png import read_png
+    from wisecondorx_tpu_torch.output.raster import render_scene
+    from wisecondorx_tpu_torch.utils.log import reset_stage_times, stage_times
+
+    outid = os.path.join(WORK, "plots_t21")
+    recorded = {}
+    write_plots = plots.write_plots
+
+    def recording(out, bins, segments, cfg, **kwargs):
+        recorded.update(bins=bins, segments=segments, cfg=cfg, kwargs=kwargs)
+        return write_plots(out, bins, segments, cfg, **kwargs)
+
+    plots.write_plots = recording
+    reset_stage_times()
+    t0 = time.perf_counter()
+    try:
+        cli.main(["predict", t21, ref, outid, "--bed", "--plot", "--device", CLI_DEVICE])
+    finally:
+        plots.write_plots = write_plots
+    predict_s = time.perf_counter() - t0
+    stages = {k: round(v, 4) for k, v in stage_times().items()}
+    plot_dir = outid + ".plots"
+    bins, segments, cfg = recorded["bins"], recorded["segments"], recorded["cfg"]
+    n_chr = 24 if bins.ref_gender == "M" else 23
+    with_data = sum(1 for c in range(n_chr) if np.any(np.asarray(bins.results_r[c]) != 0))
+    problems = _plot_dir_problems(plot_dir, with_data)
+    if with_data != _chromosomes_with_data(outid):
+        problems.append(f"{outid}: {with_data} chromosomes with data, the bins "
+                        f"table {_chromosomes_with_data(outid)}")
+
+    kwargs = {k: v for k, v in recorded["kwargs"].items() if k != "device"}
+    scenes = plots.build_scenes(bins, segments, cfg, **kwargs)
+    cpu = torch.device("cpu")
+    differing, cpu_s = [], 0.0
+    for scene in scenes:
+        card = read_png(os.path.join(plot_dir, scene.name))
+        t0 = time.perf_counter()
+        again = render_scene(scene, cpu).numpy()
+        cpu_s += time.perf_counter() - t0
+        if not np.array_equal(card, again):
+            differing.append(scene.name)
+        if scene.name == "genome_wide.png":
+            chr21_share, chr1_count, outside = _gain_pixels(
+                card, scene, bins, segments, cfg.zscore)
+    if chr21_share < 0.95 or chr1_count or outside:
+        problems.append(f"gain pixels: chr21 columns {chr21_share}, chr1 {chr1_count}, "
+                        f"outside gain segments {outside}")
+    if differing:
+        problems.append(f"CPU rasters differ from the card's in {differing}")
+
+    # predict-batch --bed --plot on the first plate samples.
+    batch = [p for p, ev in plate if ev != "unreadable"][:PLOT_PLATE]
+    outdir = os.path.join(WORK, "plate_plots")
+    reset_stage_times()
+    t0 = time.perf_counter()
+    cli.main(["predict-batch", ref, outdir, "--bed", "--plot", "--device", CLI_DEVICE,
+              "--infiles", *batch])
+    batch_s = time.perf_counter() - t0
+    batch_stages = {k: round(v, 4) for k, v in stage_times().items()}
+    for path in batch:
+        base = os.path.join(outdir, os.path.basename(path)[:-4])
+        for suffix in ("_bins.bed", "_segments.bed", "_aberrations.bed",
+                       "_statistics.txt"):
+            if not os.path.exists(base + suffix):
+                problems.append(f"{base}{suffix} missing")
+        problems += _plot_dir_problems(base + ".plots", _chromosomes_with_data(base))
+
+    # newref --plotyfrac: the figure, and no reference.
+    yfrac = os.path.join(WORK, "yfrac.png")
+    never = os.path.join(WORK, "reference_yfrac.npz")
+    t0 = time.perf_counter()
+    try:
+        cli.main(["newref", *files, never, "--binsize", str(BINSIZE),
+                  "--plotyfrac", yfrac, "--device", CLI_DEVICE])
+        code = 0
+    except SystemExit as e:
+        code = e.code
+    yfrac_s = time.perf_counter() - t0
+    yfrac_shape = read_png(yfrac).shape if os.path.exists(yfrac) else None
+    if code != 0 or yfrac_shape != YFRAC_PX + (3,) or os.path.exists(never):
+        problems.append(f"--plotyfrac: exit {code}, {yfrac_shape}, "
+                        f"reference written: {os.path.exists(never)}")
+    emit("plots", figures=len(scenes), predict_seconds=round(predict_s, 3),
+         scene_s=stages.get("predict.plots.scene"),
+         raster_s=stages.get("predict.plots.raster"),
+         encode_s=stages.get("predict.plots.encode"),
+         predict_stages=stages, cpu_raster_s=round(cpu_s, 3),
+         cpu_equal=not differing, chr21_gain_columns=chr21_share,
+         chr1_gain_pixels=chr1_count, gain_pixels_outside=outside,
+         batch_samples=len(batch), batch_seconds=round(batch_s, 3),
+         batch_seconds_per_sample=round(batch_s / len(batch), 4),
+         batch_plot_s_per_sample={k.split(".")[-1]: round(v / len(batch), 4)
+                                  for k, v in batch_stages.items()
+                                  if k.startswith("predict.plots.")},
+         batch_stages=batch_stages, yfrac_exit=code, yfrac_shape=yfrac_shape,
+         yfrac_seconds=round(yfrac_s, 3))
+    if problems:
+        raise AssertionError("; ".join(problems))
+
+
+def _cbs_round_bound(row_sizes, seg_sizes, n_pad, esz, lengths, cfg):
+    """The least time of one device-stream permutation round
+    (ops/cbs.py:perm_round_device) with rows of true sizes ``row_sizes``
+    drawn from segments of sizes ``seg_sizes`` padded to ``n_pad``, values
+    of ``esz`` bytes: bytes (the segment tables read once; the 31-bit sort
+    keys, the permuted (w, wx) rows and their two cumulative sums written
+    once; the arc statistic's per-row maxima) at the memory rate, the
+    Threefry blocks at the INT32 rate, and the arcs this round's rows
+    test (every valid window arc and wrap arc, ARC_OPS each) at the FP64
+    or FP32 rate.  Returns {bytes, int32_ops, fp_ops, *_ms, bound_ms,
+    bound_by}."""
+    import numpy as np
+
+    rows, s = len(row_sizes), len(seg_sizes)
+    n_eff = int(np.max(row_sizes))
+    lengths = np.asarray(lengths)
+    lengths = lengths[(lengths >= cfg.min_width) & (lengths <= n_eff - cfg.min_width)]
+    nbytes = (2 * s * n_pad * esz + rows * n_pad * 4 + 2 * rows * n_pad * esz
+              + 2 * rows * (n_eff + 1) * esz + (rows + s) * esz)
+    int_ops = rows * n_pad * (THREEFRY_OPS + 3) + rows * 4 * THREEFRY_OPS
+    arcs = 0
+    for n in np.concatenate([row_sizes, seg_sizes]):
+        ok = lengths[lengths <= n - cfg.min_width]
+        arcs += int(np.sum(n - ok + 1))
+        ks = np.arange(cfg.min_width, min(cfg.kmax, n - cfg.min_width) + 1)
+        arcs += int(np.sum(np.maximum(ks - 1, 0)))
+    fp_rate = H100_FP64_FLOPS if esz == 8 else H100_FP32_FLOPS
+    times = {"bytes": nbytes / H100_BYTES_PER_S * 1e3,
+             "int32": int_ops / H100_INT32_OPS * 1e3,
+             "fp": arcs * ARC_OPS / fp_rate * 1e3}
+    by = max(times, key=times.get)
+    return {"bytes": nbytes, "int32_ops": int_ops, "fp_ops": arcs * ARC_OPS,
+            "fp_bits": 8 * esz, **{f"{k}_ms": v for k, v in times.items()},
+            "bound_ms": times[by], "bound_by": "bytes" if by == "bytes" else "operations"}
 
 
 def a_pass(samples, ref, device):
@@ -1167,6 +1450,7 @@ def main():
 
     phase_predict_batch(ref, plate, os.path.join(WORK, "case_t21"), device)
     phase_cbs_stream(ref, t21, device)
+    phase_plots(ref, t21, plate, files, device)
     torch.cuda.empty_cache()
     ref_a, ml, corrected = a_pass(samples, ref, device)
     result, k1_err, k2_err = phase_kernels(ref_a, ml, corrected, device)

@@ -131,3 +131,30 @@ def test_wrapper_rejects_what_the_kernels_do_not_take(dev):
     vals, idx, drop = knn_cuda.bucket_scan(*args, n, 1e30)
     with pytest.raises(ValueError):
         knn_cuda.extract_topk(vals, idx, drop, vals.shape[1] + 1)
+
+
+def test_scene_raster_on_the_card_equals_the_cpu_raster(dev):
+    """A figure's raster is integer work on host-computed geometry, so the
+    card's equals the CPU's bit for bit."""
+    import types
+
+    from wisecondorx_tpu_torch.output import plots
+    from wisecondorx_tpu_torch.output.raster import render_scene
+
+    rng = np.random.default_rng(0)
+    sizes = rng.integers(200, 900, 24)
+    results_r = [rng.normal(0.0, 0.1, n) * (rng.random(n) > 0.1) for n in sizes]
+    results_w = [rng.uniform(0.2, 2.0, n) for n in sizes]
+    bins = types.SimpleNamespace(results_r=results_r, results_w=results_w,
+                                 ref_gender="M", gender="M", binsize=50_000,
+                                 n_reads=8_000_000)
+    segments = [[20, 0, int(sizes[20]), 12.0, 0.55], [4, 10, 90, -7.0, -0.8]]
+    cfg = types.SimpleNamespace(zscore=5.0, beta=None)
+    scenes = plots.build_scenes(bins, segments, cfg, plot_title="t")[:3]
+    scenes.append(plots.yfrac_scene({
+        "y_fractions": rng.uniform(0, 0.012, 60),
+        "grid": np.linspace(0, 0.02, 5000),
+        "density": np.exp(-((np.linspace(0, 0.02, 5000) - 0.01) / 0.002) ** 2)}))
+    for scene in scenes:
+        card = render_scene(scene, dev).cpu()
+        assert torch.equal(card, render_scene(scene, torch.device("cpu"))), scene.name

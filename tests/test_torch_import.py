@@ -1,12 +1,13 @@
-"""The PyTorch port imports with jax, scikit-learn, matplotlib and the JAX
-package itself absent (the machine with the GPU has none of the first
-three, and the port keeps its own copies of the host modules it needs).
+"""The PyTorch port imports with jax, scikit-learn, matplotlib, PIL and the
+JAX package itself absent (the machine with the GPU has none of the first
+four, and the port keeps its own copies of the host modules it needs and
+draws its figures itself).
 
 * a subprocess imports every module of the port with those packages
   blocked (tests/conftest.py has already imported jax into this process);
-* an AST scan finds no ``import`` of ``wisecondorx_tpu`` anywhere in the
-  port or in chip_smoke.py, including imports inside functions, which the
-  subprocess only reaches when they run.
+* an AST scan finds no ``import`` of ``wisecondorx_tpu``, ``matplotlib``
+  or ``PIL`` anywhere in the port or in chip_smoke.py, including imports
+  inside functions, which the subprocess only reaches when they run.
 """
 
 import ast
@@ -28,6 +29,12 @@ PORT_MODULES = [
     "wisecondorx_tpu_torch.io.bam",
     "wisecondorx_tpu_torch.output",
     "wisecondorx_tpu_torch.output.tables",
+    "wisecondorx_tpu_torch.output._glyphs",
+    "wisecondorx_tpu_torch.output.layout",
+    "wisecondorx_tpu_torch.output.plots",
+    "wisecondorx_tpu_torch.output.png",
+    "wisecondorx_tpu_torch.output.raster",
+    "wisecondorx_tpu_torch.output.text",
     "wisecondorx_tpu_torch.ops._build",
     "wisecondorx_tpu_torch.ops.common",
     "wisecondorx_tpu_torch.ops.knn",
@@ -50,7 +57,9 @@ PORT_MODULES = [
 ]
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
-BLOCKED = ("jax", "jaxlib", "sklearn", "matplotlib", "wisecondorx_tpu")
+BLOCKED = ("jax", "jaxlib", "sklearn", "matplotlib", "PIL", "wisecondorx_tpu")
+#: Top-level packages no port file may import.
+FORBIDDEN = ("wisecondorx_tpu", "matplotlib", "PIL")
 
 
 def test_port_imports_without_jax_sklearn_matplotlib():
@@ -99,8 +108,7 @@ PORT_FILES = sorted(
 @pytest.mark.parametrize("path", PORT_FILES)
 def test_port_file_imports_nothing_of_the_jax_package(path):
     tree = ast.parse((REPO / path).read_text(), filename=path)
-    bad = [m for m in _imported_modules(tree)
-           if m == "wisecondorx_tpu" or m.startswith("wisecondorx_tpu.")]
+    bad = [m for m in _imported_modules(tree) if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path} imports {bad}"
 
 
@@ -111,8 +119,14 @@ def test_import_scan_sees_nested_imports():
         "    import wisecondorx_tpu.genome as g\n"
         "    importlib.import_module('wisecondorx_tpu.ref_qc')\n"
         "from wisecondorx_tpu_torch import genome\n"
+        "import matplotlib.pyplot as plt\n"
+        "from PIL import Image\n"
     )
     assert sorted(_imported_modules(tree)) == [
-        "wisecondorx_tpu.genome", "wisecondorx_tpu.io",
-        "wisecondorx_tpu.ref_qc", "wisecondorx_tpu_torch",
+        "PIL", "matplotlib.pyplot", "wisecondorx_tpu.genome",
+        "wisecondorx_tpu.io", "wisecondorx_tpu.ref_qc", "wisecondorx_tpu_torch",
     ]
+    assert [m for m in sorted(_imported_modules(tree))
+            if m.split(".")[0] in FORBIDDEN] == [
+        "PIL", "matplotlib.pyplot", "wisecondorx_tpu.genome",
+        "wisecondorx_tpu.io", "wisecondorx_tpu.ref_qc"]

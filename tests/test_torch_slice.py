@@ -7,7 +7,9 @@ cohort, with the reference .npz exchanged in both directions:
   (a difference is allowed only where the k boundary is tied);
 * predict --bed on one sample, with a JAX-built reference driving both
   predicts and a port-built reference driving both: segments and
-  aberrations byte-equal, bins and statistics to rtol 1e-9.
+  aberrations byte-equal, bins and statistics to rtol 1e-9;
+* --plot (predict and predict-batch) and newref --plotyfrac: the JAX CLI's
+  files at its pixel sizes, and no file at all when the card is missing.
 
 One known difference breaks the byte equality on some cohorts: predict
 recentres log2 ratios by their median m_lr and blanks bins whose recentred
@@ -195,18 +197,74 @@ def test_gender_subcommand(run, capsys):
     assert capsys.readouterr().out == want == "female\n"
 
 
-@pytest.mark.parametrize("argv", [
-    ["predict", "a.npz", "r.npz", "out", "--bed", "--plot", "--device", "cpu"],
-    ["newref", "a.npz", "b.npz", "r.npz", "--plotyfrac", "y.png",
-     "--device", "cpu"],
-    ["predict-batch", "r.npz", "outdir", "--bed", "--plot", "--device", "cpu",
-     "--infiles", "a.npz"],
-])
-def test_cli_refuses_what_is_not_ported(argv, caplog):
-    with pytest.raises(SystemExit) as exc:
-        torch_cli(argv)
-    assert exc.value.code != 0
-    assert "wisecondorx-tpu" in caplog.text
+def _png_size(path):
+    """(width, height) from a PNG's IHDR chunk."""
+    import struct
+
+    with open(path, "rb") as f:
+        head = f.read(24)
+    assert head[:8] == b"\x89PNG\r\n\x1a\n" and head[12:16] == b"IHDR"
+    return struct.unpack(">II", head[16:24])
+
+
+def _plot_sizes(outid):
+    d = outid + ".plots"
+    return {name: _png_size(os.path.join(d, name)) for name in os.listdir(d)}
+
+
+@pytest.mark.parametrize("kind", ["predict", "predict-batch", "plotyfrac",
+                                  "cuda-missing"])
+def test_cli_writes_the_plots(run, kind, tmp_path, monkeypatch):
+    """The port's --plot (predict and predict-batch) writes the JAX CLI's
+    files at the JAX CLI's pixel sizes; newref --plotyfrac writes its
+    figure and no reference; --plot on a missing card raises before any
+    file is written."""
+    import torch
+
+    from wisecondorx_tpu_torch.output.png import read_png
+
+    cohort, refs, _, case = run
+    if kind == "plotyfrac":
+        infiles = sorted(str(p) for p in cohort.glob("control_*.npz"))
+        sizes = {}
+        for name, cli, extra in (("jax", jax_cli, []),
+                                 ("torch", torch_cli, ["--device", "cpu"])):
+            png = str(tmp_path / f"{name}_yfrac.png")
+            ref = str(tmp_path / f"{name}_ref.npz")
+            with pytest.raises(SystemExit) as exc:
+                cli(["newref", *infiles, ref, "--plotyfrac", png, *extra])
+            assert exc.value.code == 0
+            assert not os.path.exists(ref)
+            sizes[name] = _png_size(png)
+        assert sizes["torch"] == sizes["jax"] == (1600, 600)
+        assert read_png(str(tmp_path / "torch_yfrac.png")).shape == (600, 1600, 3)
+        return
+    if kind == "cuda-missing":
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        outid = str(tmp_path / "x")
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            torch_cli(["predict", case, refs["torch"], outid, "--plot"])
+        assert not os.listdir(tmp_path)
+        return
+    want = str(tmp_path / "jax")
+    jax_cli(["predict", case, refs["jax"], want, "--bed", "--plot",
+             "--minrefbins", "10"])
+    if kind == "predict":
+        got = str(tmp_path / "torch")
+        torch_cli(["predict", case, refs["jax"], got, "--bed", "--plot",
+                   "--minrefbins", "10", "--device", "cpu"])
+        assert os.path.exists(got + "_bins.bed")
+    else:
+        outdir = tmp_path / "plate"
+        torch_cli(["predict-batch", refs["jax"], str(outdir), "--plot",
+                   "--minrefbins", "10", "--device", "cpu", "--infiles", case])
+        got = str(outdir / "case")
+        assert not os.path.exists(got + "_bins.bed")  # --plot alone
+    assert _plot_sizes(got) == _plot_sizes(want)
+    assert "genome_wide.png" in _plot_sizes(got)
+    for name in _plot_sizes(got):
+        w, h = _png_size(os.path.join(got + ".plots", name))
+        assert read_png(os.path.join(got + ".plots", name)).shape == (h, w, 3)
 
 
 def test_cuda_device_is_never_replaced_by_the_cpu(run, monkeypatch):

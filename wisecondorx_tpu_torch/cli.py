@@ -9,9 +9,9 @@ no device.  ``newref`` and ``predict-batch`` run as several processes when
 started the way ``torchrun`` starts them (``WORLD_SIZE``, ``RANK``,
 ``MASTER_ADDR``, ``MASTER_PORT``): newref splits its KNN rows over the
 processes and process 0 writes the reference; predict-batch shards the
-plate's files.  What the port does not carry yet -- ``--plot`` and
-``--plotyfrac`` -- exits non-zero with a message naming the JAX CLI
-(``wisecondorx-tpu``).
+plate's files.  ``predict --plot`` and ``predict-batch --plot`` write the
+JAX package's figures, and ``newref --plotyfrac`` its chrY-fraction figure,
+as PNGs rasterized on the run's device (``output/plots.py``).
 """
 
 from __future__ import annotations
@@ -25,14 +25,6 @@ import numpy as np
 
 from wisecondorx_tpu_torch.io.npz import load_sample_npz
 from wisecondorx_tpu_torch.utils.log import setup_logging, stage_timer
-
-
-def _not_ported(what: str):
-    logging.critical(
-        "%s is not carried by the PyTorch port yet; use the JAX CLI "
-        "(wisecondorx-tpu) for it", what,
-    )
-    sys.exit(2)
 
 
 def tool_convert(args):
@@ -65,8 +57,6 @@ def tool_newref(args):
         maybe_initialize_distributed,
     )
 
-    if args.plotyfrac is not None:
-        _not_ported("newref --plotyfrac")
     rank, world = maybe_initialize_distributed()
     devices = resolve_devices(args.device)
     logging.info("Creating new reference on %s%s",
@@ -79,6 +69,18 @@ def tool_newref(args):
 
         with ThreadPoolExecutor(max_workers=8) as pool:
             samples = list(pool.map(load_one, args.infiles))
+    if args.plotyfrac is not None:
+        # Plot the gender model's fit for --yfrac tuning, then stop.
+        from wisecondorx_tpu_torch.io.npz import scale_sample
+        from wisecondorx_tpu_torch.ops.gmm import train_gender_model
+        from wisecondorx_tpu_torch.output.plots import write_yfrac_plot
+
+        scaled = [scale_sample(s, bs, int(args.binsize)) for s, bs in samples]
+        _, _, fit = train_gender_model(scaled, yfrac_override=args.yfrac)
+        if rank == 0:
+            path = write_yfrac_plot(args.plotyfrac, fit, devices[0])
+            logging.info("Image written to %s, now quitting ...", path)
+        sys.exit(0)
     cfg = NewrefConfig(binsize=int(args.binsize), refsize=args.refsize,
                        nipt=args.nipt, yfrac=args.yfrac, seed=args.seed,
                        checkpoint_dir=args.checkpoint_dir)
@@ -117,12 +119,11 @@ def _predict_config(args):
     """PredictConfig of the predict flags; exits on an invalid value."""
     from wisecondorx_tpu_torch.models.predictor import PredictConfig, PredictError
 
-    if args.plot:
-        _not_ported(f"{args.command} --plot")
-    if not args.bed:
+    if not args.bed and not args.plot:
         logging.critical(
-            "No output format selected. Select --bed (the port does not "
-            "write plots yet)"
+            "No output format selected. "
+            "Select at least one of the supported output formats "
+            "(--bed, --plot)"
         )
         sys.exit(1)
     cfg = PredictConfig(
@@ -136,6 +137,15 @@ def _predict_config(args):
         logging.critical(str(e))
         sys.exit(1)
     return cfg
+
+
+def _write_plots(args, outid, bins, segments, cfg, device):
+    from wisecondorx_tpu_torch.output.plots import write_plots
+
+    write_plots(outid, bins, segments, cfg, ylim=args.ylim,
+                regions=args.regions,
+                plot_title=outid.split("/")[-1] if args.add_plot_title else None,
+                device=device)
 
 
 def tool_test(args):
@@ -156,9 +166,12 @@ def tool_test(args):
         except PredictError as e:
             logging.critical(str(e))
             sys.exit(1)
-    with stage_timer("predict.write"):
-        generate_output_tables(args.outid, bins, segments, cfg,
-                               regions=args.regions)
+    if args.bed:
+        with stage_timer("predict.write"):
+            generate_output_tables(args.outid, bins, segments, cfg,
+                                   regions=args.regions)
+    if args.plot:
+        _write_plots(args, args.outid, bins, segments, cfg, device)
     logging.info("Finished prediction")
 
 
@@ -222,11 +235,14 @@ def tool_test_batch(args):
         else:
             good.append((outid, bins))
     all_segments = segment_bins_batch([b for _, b in good], cfg, devices[0])
-    with stage_timer("predict_batch.write"):
-        for (outid, bins), segments in zip(good, all_segments):
-            generate_output_tables(outid, bins, segments, cfg,
-                                   regions=args.regions)
-            logging.info("Wrote %s", outid)
+    for (outid, bins), segments in zip(good, all_segments):
+        if args.bed:
+            with stage_timer("predict_batch.write"):
+                generate_output_tables(outid, bins, segments, cfg,
+                                       regions=args.regions)
+        if args.plot:
+            _write_plots(args, outid, bins, segments, cfg, devices[0])
+        logging.info("Wrote %s", outid)
     logging.info("Finished batch prediction")
     if failed:
         logging.error(
@@ -317,7 +333,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("reference", type=str)
     p.add_argument("outid", type=str)
     predict_flags(p)
-    p.set_defaults(func=tool_test, command="predict")
+    p.set_defaults(func=tool_test)
 
     p = sub.add_parser(
         "predict-batch", formatter_class=fmt,
@@ -331,7 +347,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--chunk", type=int, default=8,
                    help="Samples normalized together")
     predict_flags(p)
-    p.set_defaults(func=tool_test_batch, command="predict-batch")
+    p.set_defaults(func=tool_test_batch)
     return parser
 
 
