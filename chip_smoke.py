@@ -72,14 +72,31 @@ Phases, each printing one JSON line on stdout (logs go to stderr):
    which K1 streams its rows; its stored neighbours meet the bar of phase 9
    against the exact float64 search; and K1 against its plain version
    (exact) at the A-pass row-chunk shape with 1,000 and 4,096 samples, each
-   timed beside its bound.
+   timed beside its bound;
+14. trace -- the main cohort's newref, ``predict --bed --plot`` of the
+   trisomy-21 sample and ``predict-batch --bed`` of the plate, then newref
+   on bench.py's headline shape (15 kb bins over the whole genome, 250 F +
+   250 M controls, seed 2), each through the CLI with ``WCX_PROFILE_DIR``
+   set (only for those calls) to ``build/chip_smoke/trace/<shape>``: one
+   JSON line per traced stage name (:func:`trace_summary`: window, device
+   busy ms and share, top device operations, longest idle gaps with their
+   host ranges) and one per call (wall, busy share over its traced stages,
+   the stages timed without a trace); the traced main newref's reference
+   equal to the newref phase's; traces with device kernels for
+   ``newref.pass_A`` (both shapes), ``predict.cbs`` (one from predict, one
+   from predict-batch) and ``predict.plots.raster``; at the bench shape
+   both kernels launched, their summed device time from the trace, and the
+   stored A-pass neighbours of the first BENCH_CHECK_ROWS rows against the
+   exact float64 search (the bar of phase 9).
 
 The kernels' launch counters are set to 0 just before newref and read just
 after predict: both kernels must have run on that path (predict-batch runs
 no KNN kernel, nor do the plots).  Each later path that searches (the resumed newref, the
-two-device search, each worker's newref, the wide newref) is read the same
-way and must have launched both kernels too.  Then one JSON line lists the
-kernels (K1 with its wide-shape times), and the last line is
+two-device search, each worker's newref, the wide newref, the bench-shape
+newref) is read the same way and must have launched both kernels too.
+Then one JSON line lists the kernels (K1 with its wide-shape times, each
+with its launches and summed device time in the bench-shape newref's
+traces), and the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failure raises, and the script exits non-zero without that line.  It
 writes only under build/chip_smoke/ in the checkout.
@@ -150,6 +167,21 @@ WIDE_K1_SAMPLES = (1000, 4096)
 WORKER_TIMEOUT = 400
 #: The --device of every CLI call and worker.
 CLI_DEVICE = "cuda"
+#: The trace phase's second cohort: bench.py's headline shape (15 kb bins,
+#: whole genome, 500 controls).
+BENCH_BINSIZE = 15000
+BENCH_GENOME_SCALE = 1.0
+BENCH_FEMALE = BENCH_MALE = 250
+BENCH_SEED = 2
+#: Rows of the bench-shape A pass held against the exact float64 search.
+BENCH_CHECK_ROWS = 8192
+#: Chrome-trace categories of device work, and of the host ranges that
+#: label an idle gap of the device.
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+HOST_CATS = ("user_annotation", "cpu_op")
+#: Stages whose traces must hold device kernels: (shape, stage).
+REQUIRED_TRACES = (("main", "newref.pass_A"), ("main", "predict.cbs"),
+                   ("main", "predict.plots.raster"), ("bench", "newref.pass_A"))
 
 
 def emit(phase, **fields):
@@ -210,11 +242,11 @@ def phase_build():
     return ptxas
 
 
-def save_sample(path, sample):
+def save_sample(path, sample, binsize=BINSIZE):
     """A convert-stage sample npz (the schema both CLIs read)."""
     import numpy as np
 
-    np.savez_compressed(path, binsize=BINSIZE, sample=sample,
+    np.savez_compressed(path, binsize=binsize, sample=sample,
                         quality={"mapped": 1})
 
 
@@ -832,7 +864,7 @@ def _cbs_round_bound(row_sizes, seg_sizes, n_pad, esz, lengths, cfg):
             "bound_ms": times[by], "bound_by": "bytes" if by == "bytes" else "operations"}
 
 
-def a_pass(samples, ref, device):
+def a_pass(samples, ref, device, binsize=BINSIZE):
     """The A pass of the reference newref wrote: its pass dict, masked
     layout, and the PCA-corrected float32 rows it searched (rebuilt from
     the cohort with newref's own functions and the stored mask)."""
@@ -851,8 +883,8 @@ def a_pass(samples, ref, device):
     for key in ("indexes", "distances", "null_ratios", "pca_components"):
         if not np.isfinite(ref_a[key]).all():
             raise AssertionError(f"reference member {key} is not finite")
-    cfg = NewrefConfig(binsize=BINSIZE, refsize=REFSIZE)
-    matrix = cohort_matrix([(s, BINSIZE) for s in samples], cfg)[0]
+    cfg = NewrefConfig(binsize=binsize, refsize=REFSIZE)
+    matrix = cohort_matrix([(s, binsize) for s in samples], cfg)[0]
     cohort = torch.as_tensor(matrix[: ml.layout.total_bins],
                              dtype=torch.float32, device=device)
     corrected = _normalize_and_pca(cohort, ml.mask, cfg)[0]
@@ -979,35 +1011,39 @@ def _k1_bound(args, got, s):
                   _nbytes(*args[:8], *got))
 
 
-def _stored_vs_exact(ref_a, ml, corrected, device):
-    """The kernel search of the A pass, timed, and the neighbours newref
-    stored held against the exact float64 search of the same rows.
-    Returns the measures; raises below the bar."""
+def _stored_vs_exact(ref_a, ml, corrected, device, row_range=None):
+    """The kernel search of the A pass (of its ``row_range`` rows, default
+    all), timed, and the neighbours newref stored for those rows held
+    against the exact float64 search of the same rows.  Returns the
+    measures; raises below the bar."""
     import numpy as np
     import torch
 
     from wisecondorx_tpu_torch.ops import knn, knn_cuda
 
+    r0, r1 = row_range if row_range is not None else (0, ml.n_masked)
     layout_args = (ml.chr_of_masked_bin, ml.masked_chr_starts,
                    ml.masked_bins_per_chr)
     stats = {}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    knn_cuda.knn_search_cuda(corrected, *layout_args, REFSIZE, stats=stats)
+    knn_cuda.knn_search_cuda(corrected, *layout_args, REFSIZE,
+                             row_range=row_range, stats=stats)
     torch.cuda.synchronize()
     search_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     idx_e, dist_e = knn.knn_search_exact(corrected.double(), *layout_args,
-                                         REFSIZE)
+                                         REFSIZE, row_range=row_range)
     torch.cuda.synchronize()
     exact_s = time.perf_counter() - t0
-    stored_idx = torch.as_tensor(ref_a["indexes"].astype(np.int64), device=device)
-    stored_dist = torch.as_tensor(ref_a["distances"], dtype=torch.float64,
+    stored_idx = torch.as_tensor(ref_a["indexes"][r0:r1].astype(np.int64),
+                                 device=device)
+    stored_dist = torch.as_tensor(ref_a["distances"][r0:r1], dtype=torch.float64,
                                   device=device)
     agree = _agreement(stored_idx, idx_e, REFSIZE)
     rel = (stored_dist - dist_e).abs() / dist_e.abs().clamp(min=1e-300)
     out = dict(
-        rows=ml.n_masked, samples=corrected.shape[1],
+        rows=r1 - r0, samples=corrected.shape[1],
         agree_mean=agree.mean(), agree_min=agree.min(),
         dist_rel_err_median=float(rel.median()),
         flagged_rows=stats["flagged_rows"],
@@ -1425,6 +1461,218 @@ def phase_wide(ml_main, device):
     return k1
 
 
+def trace_summary(paths, stage, top=5, gaps=3):
+    """One stage's device activity over its ``torch.profiler`` Chrome
+    traces ``paths`` (one per run of the stage).  In each, the window is
+    the stage's own ``record_function`` range; device time is the union
+    of the device events' intervals (DEVICE_CATS) clipped to it, so work
+    on two streams at once counts once; an idle gap is a stretch of the
+    window with no device event, labelled by the innermost host range
+    (HOST_CATS, any thread, the stage's own range left out) covering its
+    midpoint, or "no host range".  Returns (summary over all runs: window
+    and device ms, busy share, kernel events, the ``top`` device
+    operations by time with their counts, the ``gaps`` longest idle gaps;
+    {operation name: device ms})."""
+    window_us = busy_us = 0.0
+    kernels = 0
+    ops, idle = {}, []
+    for path in paths:
+        with open(path) as f:
+            events = [e for e in json.load(f)["traceEvents"]
+                      if e.get("ph") == "X" and "dur" in e]
+        own = [e for e in events
+               if e.get("cat") == "user_annotation" and e.get("name") == stage]
+        if not own:
+            raise AssertionError(f"{path}: no {stage} range")
+        window = max(own, key=lambda e: e["dur"])
+        w0, w1 = window["ts"], window["ts"] + window["dur"]
+        spans = []
+        for e in events:
+            a, b = max(e["ts"], w0), min(e["ts"] + e["dur"], w1)
+            if e.get("cat") not in DEVICE_CATS or b <= a:
+                continue
+            spans.append((a, b))
+            kernels += e["cat"] == "kernel"
+            t, n = ops.get(e["name"], (0.0, 0))
+            ops[e["name"]] = (t + b - a, n + 1)
+        cursor, gaps_here = w0, []
+        for a, b in sorted(spans):
+            if a > cursor:
+                gaps_here.append((cursor, a))
+            if b > cursor:
+                busy_us += b - max(a, cursor)
+                cursor = b
+        if cursor < w1:
+            gaps_here.append((cursor, w1))
+        hosts = [e for e in events if e.get("cat") in HOST_CATS and e is not window]
+        for a, b in sorted(gaps_here, key=lambda g: g[0] - g[1])[:gaps]:
+            mid = (a + b) / 2
+            covering = [e for e in hosts if e["ts"] <= mid <= e["ts"] + e["dur"]]
+            label = (min(covering, key=lambda e: e["dur"])["name"] if covering
+                     else "no host range")
+            idle.append((b - a, label))
+        window_us += window["dur"]
+    ranked = sorted(ops.items(), key=lambda kv: -kv[1][0])
+    summary = {
+        "runs": len(paths), "window_ms": window_us / 1e3,
+        "device_ms": busy_us / 1e3,
+        "busy_share": busy_us / window_us if window_us else 0.0,
+        "kernel_events": kernels,
+        "top_ops": [[name[:120], t / 1e3, n] for name, (t, n) in ranked[:top]],
+        "idle_gaps": [[g / 1e3, label] for g, label in sorted(idle, reverse=True)[:gaps]],
+    }
+    return summary, {name: t / 1e3 for name, (t, _) in ops.items()}
+
+
+def _trace_files(run_dir):
+    """{stage directory name: sorted trace files} under ``run_dir``."""
+    out = {}
+    for stage in sorted(os.listdir(run_dir)) if os.path.isdir(run_dir) else ():
+        files = sorted(os.path.join(run_dir, stage, f)
+                       for f in os.listdir(os.path.join(run_dir, stage))
+                       if f.endswith(".pt.trace.json"))
+        if files:
+            out[stage] = files
+    return out
+
+
+def traced_call(run_dir, shape, label, argv, want_code=0):
+    """The port's CLI with ``argv``, with WCX_PROFILE_DIR set to
+    ``run_dir`` for this call only.  Prints one ``trace_stage`` line per
+    stage name it traced and one ``trace_call`` line (wall, busy share over
+    its traced stages, the stages it timed without a trace).  Returns
+    ({stage: (summary, ops)}, wall seconds); raises unless it exited with
+    ``want_code``."""
+    from wisecondorx_tpu_torch import cli
+    from wisecondorx_tpu_torch.utils.log import reset_stage_times, stage_times
+
+    before = {f for fs in _trace_files(run_dir).values() for f in fs}
+    reset_stage_times()
+    os.environ["WCX_PROFILE_DIR"] = run_dir
+    t0 = time.perf_counter()
+    try:
+        cli.main(argv)
+        code = 0
+    except SystemExit as e:
+        code = e.code
+    finally:
+        del os.environ["WCX_PROFILE_DIR"]
+    wall = time.perf_counter() - t0
+    timed = stage_times()
+    if code != want_code:
+        raise AssertionError(f"traced {label} exited {code}, want {want_code}")
+    stages = {}
+    for stage, files in _trace_files(run_dir).items():
+        new = [f for f in files if f not in before]
+        if new:
+            stages[stage] = trace_summary(new, stage)
+            emit("trace_stage", shape=shape, call=label, stage=stage,
+                 stage_s=timed.get(stage), **stages[stage][0])
+    window = sum(s["window_ms"] for s, _ in stages.values())
+    device = sum(s["device_ms"] for s, _ in stages.values())
+    emit("trace_call", shape=shape, call=label, wall_s=wall,
+         traced_stages=len(stages), traced_window_ms=window, device_ms=device,
+         busy_share=device / window if window else 0.0,
+         untraced=sorted(set(timed) - set(stages)))
+    return stages, wall
+
+
+def _kernel_ms(stages, name):
+    """Summed device ms of the kernels whose name holds ``name``."""
+    return sum(ms for _, ops in stages.values() for op, ms in ops.items()
+               if name in op)
+
+
+def phase_trace(files, ref, t21, plate, device):
+    """Per-stage device traces (``WCX_PROFILE_DIR``) of the main cohort's
+    newref, ``predict --bed --plot`` and ``predict-batch --bed``, and of
+    newref at bench.py's headline shape, whose stored A-pass neighbours of
+    the first BENCH_CHECK_ROWS rows meet the bar of the kernels phase.
+    Fails on a missing required trace, a required trace without a device
+    kernel, a traced main reference that differs from the untraced one, a
+    kernel the bench newref did not launch, or neighbours below the bar."""
+    import torch
+
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from synthetic import CohortSim
+
+    root = os.path.join(WORK, "trace")
+    shutil.rmtree(root, ignore_errors=True)
+    main_dir, bench_dir = os.path.join(root, "main"), os.path.join(root, "bench")
+    traces, problems = {}, []
+
+    ref_t = os.path.join(root, "reference.npz")
+    os.makedirs(root)
+    traces["main", "newref"], newref_s = traced_call(
+        main_dir, "main", "newref",
+        ["newref", *files, ref_t, "--binsize", str(BINSIZE), "--refsize",
+         str(REFSIZE), "--device", CLI_DEVICE])
+    diff = _npz_differences(ref_t, ref)
+    if diff:
+        problems.append(f"the traced newref's reference differs in {diff}")
+    traces["main", "predict"], predict_s = traced_call(
+        main_dir, "main", "predict",
+        ["predict", t21, ref, os.path.join(root, "case_t21"), "--bed", "--plot",
+         "--device", CLI_DEVICE])
+    traces["main", "predict_batch"], batch_s = traced_call(
+        main_dir, "main", "predict_batch",
+        ["predict-batch", ref, os.path.join(root, "plate_out"), "--bed",
+         "--device", CLI_DEVICE, "--infiles", *(p for p, _ in plate)], want_code=3)
+    for call in ("predict", "predict_batch"):
+        if "predict.cbs" not in traces["main", call]:
+            problems.append(f"no predict.cbs trace from {call}")
+
+    torch.cuda.empty_cache()
+    bench_root = os.path.join(root, "bench_cohort")
+    os.makedirs(bench_root)
+    t0 = time.perf_counter()
+    sim = CohortSim(binsize=BENCH_BINSIZE, genome_scale=BENCH_GENOME_SCALE,
+                    seed=BENCH_SEED)
+    samples, _ = sim.cohort(BENCH_FEMALE, BENCH_MALE)
+    bench_files = []
+    for i, sample in enumerate(samples):
+        bench_files.append(os.path.join(bench_root, f"control_{i:03d}.npz"))
+        save_sample(bench_files[-1], sample, BENCH_BINSIZE)
+    cohort_s = time.perf_counter() - t0
+    ref_b = os.path.join(bench_root, "reference.npz")
+    (traces["bench", "newref"], bench_newref_s), launches, _ = launches_of(
+        "bench newref", lambda: traced_call(
+            bench_dir, "bench", "newref",
+            ["newref", *bench_files, ref_b, "--binsize", str(BENCH_BINSIZE),
+             "--refsize", str(REFSIZE), "--device", CLI_DEVICE]))
+    ref_a, ml, corrected = a_pass(samples, ref_b, device, BENCH_BINSIZE)
+    del samples
+    search = _stored_vs_exact(ref_a, ml, corrected, device,
+                              (0, min(BENCH_CHECK_ROWS, ml.n_masked)))
+    del corrected
+    torch.cuda.empty_cache()
+    bench = traces["bench", "newref"]
+    k1_ms = _kernel_ms(bench, "knn_bucket_kernel")
+    k2_ms = _kernel_ms(bench, "knn_topk_kernel")
+    device_ms = sum(s["device_ms"] for s, _ in bench.values())
+    emit("trace", main_walls_s={"newref": newref_s, "predict_plot": predict_s,
+                                "predict_batch": batch_s},
+         main_reference_differs=diff, bench_cohort_s=cohort_s,
+         bench_bins=int(sim.bins.sum()), bench_masked_rows=ml.n_masked,
+         bench_controls=len(bench_files), bench_genome_scale=BENCH_GENOME_SCALE,
+         bench_newref_s=bench_newref_s, bench_launches=launches,
+         bench_k1_device_ms=k1_ms, bench_k2_device_ms=k2_ms,
+         bench_device_ms=device_ms,
+         bench_knn_share_of_wall=(k1_ms + k2_ms) / 1e3 / bench_newref_s,
+         bench_search=search)
+    for shape, stage in REQUIRED_TRACES:
+        found = [s for (sh, _), stages in traces.items() if sh == shape
+                 for name, s in stages.items() if name == stage]
+        if not found:
+            problems.append(f"{shape}: no {stage} trace")
+        elif not all(s["kernel_events"] for s, _ in found):
+            problems.append(f"{shape}: a {stage} trace holds no device kernel")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return {"knn_bucket": {"launches": launches["knn_bucket"], "device_ms": k1_ms},
+            "knn_topk": {"launches": launches["knn_topk"], "device_ms": k2_ms}}
+
+
 def main():
     device = phase_device()
     import torch
@@ -1460,6 +1708,7 @@ def main():
     torch.cuda.empty_cache()
     phase_multiproc(files, ref, plate)
     wide_k1 = phase_wide(ml, device)
+    bench = phase_trace(files, ref, t21, plate, device)
 
     kernels = [
         {"name": "knn_bucket", "route": "cuda",
@@ -1471,14 +1720,15 @@ def main():
          "library_ms": None, "product_ms": result["k1_product_ms"],
          "wide": [{k: w[k] for k in ("samples", "ms", "plain_ms", "bound_ms",
                                      "bound_by", "max_abs_err")} for w in wide_k1],
-         "ptxas": ptxas.get("knn_bucket.cu")},
+         "bench_shape_trace": bench["knn_bucket"], "ptxas": ptxas.get("knn_bucket.cu")},
         {"name": "knn_topk", "route": "cuda",
          "source": "wisecondorx_tpu_torch/csrc/knn_topk.cu",
          "replaces": "wisecondorx_tpu/ops/knn_pallas.py:228",
          "launches": launches["knn_topk"], "max_abs_err": k2_err,
          "ms": result["k2_ms"], "plain_ms": result["k2_plain_ms"],
          "bound_ms": result["k2_bound_ms"], "bound_by": result["k2_bound_by"],
-         "library_ms": result["k2_topk_ms"], "ptxas": ptxas.get("knn_topk.cu")},
+         "library_ms": result["k2_topk_ms"], "bench_shape_trace": bench["knn_topk"],
+         "ptxas": ptxas.get("knn_topk.cu")},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

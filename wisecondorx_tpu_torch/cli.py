@@ -76,7 +76,8 @@ def tool_newref(args):
         from wisecondorx_tpu_torch.output.plots import write_yfrac_plot
 
         scaled = [scale_sample(s, bs, int(args.binsize)) for s, bs in samples]
-        _, _, fit = train_gender_model(scaled, yfrac_override=args.yfrac)
+        _, _, fit = train_gender_model(scaled, yfrac_override=args.yfrac,
+                                       random_state=args.seed)
         if rank == 0:
             path = write_yfrac_plot(args.plotyfrac, fit, devices[0])
             logging.info("Image written to %s, now quitting ...", path)

@@ -57,7 +57,8 @@ class NewrefConfig:
     refsize: int = 300
     nipt: bool = False
     yfrac: float | None = None
-    #: Seed of the null-ratio sample draw (the reference is unseeded).
+    #: Seed of the null-ratio sample draw and of the sex model's k-means
+    #: start (the reference is unseeded).
     seed: int | None = 0
     pca_components: int = 5
     #: Directory for crash-recovery artifacts (None = off).  A killed build
@@ -232,7 +233,7 @@ def cohort_matrix(samples_with_binsize: list[tuple[dict, int]],
         ]
     with stage_timer("newref.gender_model"):
         genders, trained_cutoff, _ = train_gender_model(
-            samples, yfrac_override=cfg.yfrac
+            samples, yfrac_override=cfg.yfrac, random_state=cfg.seed
         )
 
     nipt = cfg.nipt
