@@ -13,7 +13,9 @@ Phases, each printing one JSON line on stdout (logs go to stderr):
    (tests/synthetic.py CohortSim, genome_scale 1.0, ~62k bins), 100 female +
    100 male controls, seed 0, written as convert-stage sample npz files,
    then the cases and the plate below from the same simulator;
-4. newref  -- ``wisecondorx_tpu_torch.cli newref --device cuda``;
+4. newref  -- ``wisecondorx_tpu_torch.cli newref --device cuda`` (one
+   process, no checkpoint: the pipelined passes), with its stages and peak
+   device memory;
 5. predict -- ``predict --bed`` (streamed reference loader, device CBS
    permutation stream) on a trisomy-21 sample (must call a chr21 gain, and
    the bins table must cover every bin, and no other whole chromosome) and
@@ -57,14 +59,16 @@ Phases, each printing one JSON line on stdout (logs go to stderr):
 10. checkpoint -- newref with ``--checkpoint-dir``, stopped in process right
    after it saves its first ``knn_A_*`` artifact (``NewrefCheckpoint.save``
    patched), then run again: it resumes, writes a reference equal in every
-   member to the newref phase's, removes the directory, and launches K1
-   fewer times than the full build;
+   member to the newref phase's (the serial build equals the pipelined
+   one), removes the directory, and launches K1 fewer times than the full
+   build;
 11. multidevice -- ``knn_search_multidevice`` on the A pass and
    ``predict_batch`` on the plate with the card listed twice (two parts,
    two host threads): equal bit for bit to one device;
 12. multiproc -- newref and predict-batch as two worker processes on the
    one card, each with torchrun's environment on 127.0.0.1 and a timeout:
-   process 0's reference equals the newref phase's in every member, both
+   process 0's reference (a serial build) equals the newref phase's
+   (pipelined) in every member, both
    processes launched both kernels, and the two plate shards together
    write every sample's outputs byte-equal to the predict_batch phase's;
 13. wide -- newref through the CLI on 720 controls (360 F + 360 M) at 50
@@ -76,18 +80,25 @@ Phases, each printing one JSON line on stdout (logs go to stderr):
 14. trace -- the main cohort's newref, ``predict --bed --plot`` of the
    trisomy-21 sample and ``predict-batch --bed`` of the plate, then newref
    on bench.py's headline shape (15 kb bins over the whole genome, 250 F +
-   250 M controls, seed 2), each through the CLI with ``WCX_PROFILE_DIR``
+   250 M controls, seed 2), first untraced (its wall, stages, peak device
+   memory and .npz size), then each through the CLI with ``WCX_PROFILE_DIR``
    set (only for those calls) to ``build/chip_smoke/trace/<shape>``: one
    JSON line per traced stage name (:func:`trace_summary`: window, device
    busy ms and share, top device operations, longest idle gaps with their
    host ranges) and one per call (wall, busy share over its traced stages,
    the stages timed without a trace); the traced main newref's reference
-   equal to the newref phase's; traces with device kernels for
-   ``newref.pass_A`` (both shapes), ``predict.cbs`` (one from predict, one
-   from predict-batch) and ``predict.plots.raster``; at the bench shape
-   both kernels launched, their summed device time from the trace, and the
-   stored A-pass neighbours of the first BENCH_CHECK_ROWS rows against the
-   exact float64 search (the bar of phase 9).
+   equal to the newref phase's, the traced bench newref's to the untraced
+   one's; K1 and K2 kernel events in newref's traced stages at both shapes
+   (the searches run on their own threads, so their kernels land in
+   whatever stage the main thread traces), and traces with device kernels
+   for ``predict.cbs`` (one from predict, one from predict-batch) and
+   ``predict.plots.raster``; at the bench shape both kernels launched,
+   their summed device time and traced launches, K1 and K2 at the A pass's
+   first row chunk beside their plain versions, their bounds and their
+   library yardsticks (``torch.mm`` of K1's product, ``torch.topk`` of K2's
+   pool), K1's bound over the whole run, and the stored A-pass neighbours
+   of the first BENCH_CHECK_ROWS rows against the exact float64 search
+   (the bar of phase 9).
 
 The kernels' launch counters are set to 0 just before newref and read just
 after predict: both kernels must have run on that path (predict-batch runs
@@ -95,8 +106,9 @@ no KNN kernel, nor do the plots).  Each later path that searches (the resumed ne
 two-device search, each worker's newref, the wide newref, the bench-shape
 newref) is read the same way and must have launched both kernels too.
 Then one JSON line lists the kernels (K1 with its wide-shape times, each
-with its launches and summed device time in the bench-shape newref's
-traces), and the last line is
+with its launches and the launches its traces caught in the traced main
+newref, and its launches, traced launches, device time and chunk times in
+the bench-shape newref), and the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failure raises, and the script exits non-zero without that line.  It
 writes only under build/chip_smoke/ in the checkout.
@@ -180,8 +192,11 @@ BENCH_CHECK_ROWS = 8192
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 HOST_CATS = ("user_annotation", "cpu_op")
 #: Stages whose traces must hold device kernels: (shape, stage).
-REQUIRED_TRACES = (("main", "newref.pass_A"), ("main", "predict.cbs"),
-                   ("main", "predict.plots.raster"), ("bench", "newref.pass_A"))
+REQUIRED_TRACES = (("main", "predict.cbs"), ("main", "predict.plots.raster"))
+#: Kernels that newref's traced stages must hold at both shapes, by the
+#: names the traces give them.
+NEWREF_TRACE_KERNELS = {"knn_bucket": "knn_bucket_kernel",
+                        "knn_topk": "knn_topk_kernel"}
 
 
 def emit(phase, **fields):
@@ -306,17 +321,25 @@ def make_plate(sim, t21, euploid):
 
 
 def phase_newref(files):
+    import torch
+
     from wisecondorx_tpu_torch import cli
     from wisecondorx_tpu_torch.utils.log import reset_stage_times, stage_times
 
     ref = os.path.join(WORK, "reference.npz")
     reset_stage_times()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     cli.main(["newref", *files, ref, "--binsize", str(BINSIZE),
               "--refsize", str(REFSIZE), "--device", CLI_DEVICE])
     wall = time.perf_counter() - t0
+    stages = stage_times()
     emit("newref", seconds=round(wall, 3),
-         stages={k: round(v, 3) for k, v in stage_times().items()})
+         pipelined="newref.pass_A.prep" in stages,
+         peak_memory_bytes=torch.cuda.max_memory_allocated(),
+         stages={k: round(v, 3) for k, v in stages.items()})
+    if "newref.pass_A.prep" not in stages:
+        raise AssertionError("the one-process newref did not pipeline its passes")
     return ref
 
 
@@ -866,8 +889,9 @@ def _cbs_round_bound(row_sizes, seg_sizes, n_pad, esz, lengths, cfg):
 
 def a_pass(samples, ref, device, binsize=BINSIZE):
     """The A pass of the reference newref wrote: its pass dict, masked
-    layout, and the PCA-corrected float32 rows it searched (rebuilt from
-    the cohort with newref's own functions and the stored mask)."""
+    layout, the PCA-corrected float32 rows it searched (rebuilt from the
+    cohort with newref's own functions and the stored mask), and the
+    controls' sexes as newref's gender model called them."""
     import numpy as np
     import torch
 
@@ -884,13 +908,13 @@ def a_pass(samples, ref, device, binsize=BINSIZE):
         if not np.isfinite(ref_a[key]).all():
             raise AssertionError(f"reference member {key} is not finite")
     cfg = NewrefConfig(binsize=binsize, refsize=REFSIZE)
-    matrix = cohort_matrix([(s, binsize) for s in samples], cfg)[0]
+    matrix, _, genders = cohort_matrix([(s, binsize) for s in samples], cfg)[:3]
     cohort = torch.as_tensor(matrix[: ml.layout.total_bins],
                              dtype=torch.float32, device=device)
     corrected = _normalize_and_pca(cohort, ml.mask, cfg)[0]
     if ref_a["indexes"].shape != (ml.n_masked, REFSIZE):
         raise AssertionError(f"indexes shape {ref_a['indexes'].shape}")
-    return ref_a, ml, corrected
+    return ref_a, ml, corrected, genders
 
 
 def k2_edge_cases(seed=SEED):
@@ -1226,7 +1250,8 @@ def phase_checkpoint(files, ref, full_launches):
     emit("checkpoint", left_by_crash=left, crashed_launches=crashed,
          resumed_launches=resumed, full_launches=full_launches,
          crashed_seconds=round(crashed_s, 3), resumed_seconds=round(resumed_s, 3),
-         members_differing=diff, directory_removed=not os.path.exists(ckdir))
+         members_differing=diff, serial_vs_pipelined_equal=not diff,
+         directory_removed=not os.path.exists(ckdir))
     if not any(f.startswith("knn_A_") for f in left) or "prep_A.npz" not in left:
         raise AssertionError(f"the crash left {left}")
     if diff:
@@ -1389,6 +1414,7 @@ def phase_multiproc(files, ref, plate):
                 differing.append(base + suffix)
     emit("multiproc", newref_seconds=round(newref_s, 3),
          newref_ranks=newref, newref_members_differing=diff,
+         serial_vs_pipelined_equal=not diff,
          batch_seconds=round(batch_s, 3), batch_ranks=batch,
          batch_exit_codes_wanted=want_codes, batch_files_differing=differing)
     for rep in newref:
@@ -1433,7 +1459,7 @@ def phase_wide(ml_main, device):
     _, launches, newref_s = launches_of("wide newref", lambda: cli.main([
         "newref", *files, ref, "--binsize", str(BINSIZE), "--refsize",
         str(REFSIZE), "--device", CLI_DEVICE]))
-    ref_a, ml, corrected = a_pass(samples, ref, device)
+    ref_a, ml, corrected, _ = a_pass(samples, ref, device)
     resident = _build.load().wcx_knn_bucket_resident_s_pad()
     s_pad = -(-corrected.shape[1] // knn_cuda.S_MULTIPLE) * knn_cuda.S_MULTIPLE
     search = _stored_vs_exact(ref_a, ml, corrected, device)
@@ -1461,7 +1487,7 @@ def phase_wide(ml_main, device):
     return k1
 
 
-def trace_summary(paths, stage, top=5, gaps=3):
+def trace_summary(paths, stage, top=5, gaps=3, counts=None):
     """One stage's device activity over its ``torch.profiler`` Chrome
     traces ``paths`` (one per run of the stage).  In each, the window is
     the stage's own ``record_function`` range; device time is the union
@@ -1472,7 +1498,8 @@ def trace_summary(paths, stage, top=5, gaps=3):
     midpoint, or "no host range".  Returns (summary over all runs: window
     and device ms, busy share, kernel events, the ``top`` device
     operations by time with their counts, the ``gaps`` longest idle gaps;
-    {operation name: device ms})."""
+    {operation name: device ms}); ``counts``, where given, receives
+    {operation name: events}."""
     window_us = busy_us = 0.0
     kernels = 0
     ops, idle = {}, []
@@ -1512,6 +1539,8 @@ def trace_summary(paths, stage, top=5, gaps=3):
                      else "no host range")
             idle.append((b - a, label))
         window_us += window["dur"]
+    if counts is not None:
+        counts.update({name: n for name, (_, n) in ops.items()})
     ranked = sorted(ops.items(), key=lambda kv: -kv[1][0])
     summary = {
         "runs": len(paths), "window_ms": window_us / 1e3,
@@ -1541,8 +1570,8 @@ def traced_call(run_dir, shape, label, argv, want_code=0):
     ``run_dir`` for this call only.  Prints one ``trace_stage`` line per
     stage name it traced and one ``trace_call`` line (wall, busy share over
     its traced stages, the stages it timed without a trace).  Returns
-    ({stage: (summary, ops)}, wall seconds); raises unless it exited with
-    ``want_code``."""
+    ({stage: (summary, {op: device ms}, {op: events})}, wall seconds);
+    raises unless it exited with ``want_code``."""
     from wisecondorx_tpu_torch import cli
     from wisecondorx_tpu_torch.utils.log import reset_stage_times, stage_times
 
@@ -1565,11 +1594,12 @@ def traced_call(run_dir, shape, label, argv, want_code=0):
     for stage, files in _trace_files(run_dir).items():
         new = [f for f in files if f not in before]
         if new:
-            stages[stage] = trace_summary(new, stage)
+            counts = {}
+            stages[stage] = (*trace_summary(new, stage, counts=counts), counts)
             emit("trace_stage", shape=shape, call=label, stage=stage,
                  stage_s=timed.get(stage), **stages[stage][0])
-    window = sum(s["window_ms"] for s, _ in stages.values())
-    device = sum(s["device_ms"] for s, _ in stages.values())
+    window = sum(s[0]["window_ms"] for s in stages.values())
+    device = sum(s[0]["device_ms"] for s in stages.values())
     emit("trace_call", shape=shape, call=label, wall_s=wall,
          traced_stages=len(stages), traced_window_ms=window, device_ms=device,
          busy_share=device / window if window else 0.0,
@@ -1579,19 +1609,108 @@ def traced_call(run_dir, shape, label, argv, want_code=0):
 
 def _kernel_ms(stages, name):
     """Summed device ms of the kernels whose name holds ``name``."""
-    return sum(ms for _, ops in stages.values() for op, ms in ops.items()
+    return sum(ms for _, ops, _ in stages.values() for op, ms in ops.items()
                if name in op)
+
+
+def _kernel_events(stages, name):
+    """Events of the kernels whose name holds ``name``."""
+    return sum(n for _, _, counts in stages.values()
+               for op, n in counts.items() if name in op)
+
+
+def _bench_chunk(ml, corrected, device):
+    """K1 and K2 at the first row chunk of an A pass of real data
+    (``corrected``, prepared as the search prepares it): each kernel's
+    time beside its plain version's, its bound and its library yardstick
+    (``torch.mm`` of K1's product in full fp32, since no single call
+    computes its distances and bucketed top-M; ``torch.topk`` of K1's
+    pool for K2), and each kernel's largest difference from its plain
+    version on these inputs: for K1, between the k smallest distances of
+    its pool and of the plain version's (its products round differently
+    from a float32 product); for K2, on K1's pool (exact).  Returns
+    {kernel: measures}."""
+    import torch
+
+    from wisecondorx_tpu_torch.ops import knn, knn_cuda
+
+    n, s = corrected.shape
+    lanes, depth = knn_cuda.LANES, knn_cuda.DEPTH
+    cand, cnorm, scale = knn_cuda.prepare_candidates(corrected, lanes)
+    cchr = torch.full((cand.shape[0],), -2, dtype=torch.int32, device=device)
+    cchr[:n] = torch.as_tensor(ml.chr_of_masked_bin, device=device)
+    starts = torch.as_tensor(ml.masked_chr_starts, dtype=torch.int32, device=device)
+    sizes = torch.as_tensor(ml.masked_bins_per_chr, dtype=torch.int32, device=device)
+    r = min(knn_cuda.ROW_CHUNK, n)
+    rchr = cchr[:r]
+    args = (cand[:r], cnorm[:r], rchr, starts[rchr.long()].contiguous(),
+            sizes[rchr.long()].contiguous(), cand, cnorm, cchr, n,
+            min(knn.SENTINEL_DISTANCE * scale * scale, 1e30))
+    pool = knn_cuda.bucket_scan(*args)
+    plain_pool = knn_cuda.bucket_scan_reference(*args, lanes=lanes, depth=depth)
+    top = knn_cuda.extract_topk(*pool, REFSIZE)
+    plain_top = knn_cuda.extract_topk_reference(*pool, REFSIZE)
+    k1_err = _max_abs(top[0], knn_cuda.extract_topk_reference(*plain_pool, REFSIZE)[0])
+    torch.cuda.synchronize()
+    del plain_pool
+    if not (torch.equal(top[0], plain_top[0]) and torch.equal(top[2], plain_top[2])):
+        raise AssertionError("K2 differs from extract_topk_reference on the bench pool")
+    k2_err = _max_abs(top[0], plain_top[0])
+    del plain_top
+    k1_bound = _k1_bound(args, pool, s)
+    k2_bound = _bound(0, _nbytes(pool[0], pool[2], top[1], *top))
+    k1 = dict(rows=r, candidates=n, samples=s, max_abs_err=k1_err,
+              ms=cuda_ms(lambda: knn_cuda.bucket_scan(*args)),
+              plain_ms=cuda_ms(lambda: knn_cuda.bucket_scan_reference(
+                  *args, lanes=lanes, depth=depth), reps=1),
+              bound_ms=k1_bound[0], bound_by=k1_bound[1],
+              product_ms=cuda_ms(lambda: torch.mm(cand[:r], cand.T)))
+    k2 = dict(rows=r, pool=pool[0].shape[1], max_abs_err=k2_err,
+              ms=cuda_ms(lambda: knn_cuda.extract_topk(*pool, REFSIZE)),
+              plain_ms=cuda_ms(lambda: knn_cuda.extract_topk_reference(
+                  *pool, REFSIZE), reps=1),
+              bound_ms=k2_bound[0], bound_by=k2_bound[1],
+              library_ms=cuda_ms(lambda: torch.topk(pool[0], REFSIZE, dim=1,
+                                                    largest=False)))
+    return {"knn_bucket": k1, "knn_topk": k2}
+
+
+def _k1_run_bound(ref_path, genders):
+    """K1's bound over a whole newref (ms): the 3xTF32 products of every
+    searched row of each pass (all rows of the A pass, the chrX/chrY rows
+    of F and M) with all of that pass's candidates, over its samples, at
+    the TF32 peak."""
+    import numpy as np
+
+    ref = np.load(ref_path)
+    ops = 0
+    for gender, suffix in (("A", ""), ("F", ".F"), ("M", ".M")):
+        key = f"masked_bins_per_chr{suffix}"
+        if key not in ref.files:
+            continue
+        per_chr = ref[key]
+        n = int(per_chr.sum())
+        rows = n - (0 if gender == "A" else int(per_chr[:22].sum()))
+        samples = len(genders) if gender == "A" else genders.count(gender)
+        ops += 3 * 2 * rows * n * samples
+    return ops / H100_TF32_FLOPS * 1e3
 
 
 def phase_trace(files, ref, t21, plate, device):
     """Per-stage device traces (``WCX_PROFILE_DIR``) of the main cohort's
     newref, ``predict --bed --plot`` and ``predict-batch --bed``, and of
-    newref at bench.py's headline shape, whose stored A-pass neighbours of
-    the first BENCH_CHECK_ROWS rows meet the bar of the kernels phase.
-    Fails on a missing required trace, a required trace without a device
-    kernel, a traced main reference that differs from the untraced one, a
-    kernel the bench newref did not launch, or neighbours below the bar."""
+    newref at bench.py's headline shape, which first runs untraced; the
+    stored A-pass neighbours of the first BENCH_CHECK_ROWS rows meet the
+    bar of the kernels phase, and K1 and K2 are timed at that A pass's
+    first row chunk.  Fails on a missing required trace, a required trace
+    without a device kernel, a newref whose traced stages hold no K1 or
+    K2 event, a traced reference that differs from the untraced one, a
+    kernel a newref did not launch, or neighbours below the bar.  Returns
+    {kernel: {"main": ..., "bench": ...}} for the kernels line."""
     import torch
+
+    from wisecondorx_tpu_torch import cli
+    from wisecondorx_tpu_torch.utils.log import reset_stage_times, stage_times
 
     sys.path.insert(0, os.path.join(REPO, "tests"))
     from synthetic import CohortSim
@@ -1599,14 +1718,15 @@ def phase_trace(files, ref, t21, plate, device):
     root = os.path.join(WORK, "trace")
     shutil.rmtree(root, ignore_errors=True)
     main_dir, bench_dir = os.path.join(root, "main"), os.path.join(root, "bench")
-    traces, problems = {}, []
+    traces, problems, launches = {}, [], {}
 
     ref_t = os.path.join(root, "reference.npz")
     os.makedirs(root)
-    traces["main", "newref"], newref_s = traced_call(
-        main_dir, "main", "newref",
-        ["newref", *files, ref_t, "--binsize", str(BINSIZE), "--refsize",
-         str(REFSIZE), "--device", CLI_DEVICE])
+    (traces["main", "newref"], newref_s), launches["main"], _ = launches_of(
+        "traced main newref", lambda: traced_call(
+            main_dir, "main", "newref",
+            ["newref", *files, ref_t, "--binsize", str(BINSIZE), "--refsize",
+             str(REFSIZE), "--device", CLI_DEVICE]))
     diff = _npz_differences(ref_t, ref)
     if diff:
         problems.append(f"the traced newref's reference differs in {diff}")
@@ -1634,43 +1754,75 @@ def phase_trace(files, ref, t21, plate, device):
         bench_files.append(os.path.join(bench_root, f"control_{i:03d}.npz"))
         save_sample(bench_files[-1], sample, BENCH_BINSIZE)
     cohort_s = time.perf_counter() - t0
+
+    def bench_argv(out):
+        return ["newref", *bench_files, out, "--binsize", str(BENCH_BINSIZE),
+                "--refsize", str(REFSIZE), "--device", CLI_DEVICE]
+
+    ref_u = os.path.join(bench_root, "reference_untraced.npz")
+    reset_stage_times()
+    torch.cuda.reset_peak_memory_stats()
+    _, untraced_launches, untraced_s = launches_of(
+        "untraced bench newref", lambda: cli.main(bench_argv(ref_u)))
+    emit("bench_newref", seconds=untraced_s, launches=untraced_launches,
+         npz_bytes=os.path.getsize(ref_u),
+         peak_memory_bytes=torch.cuda.max_memory_allocated(),
+         stages={k: round(v, 3) for k, v in stage_times().items()})
     ref_b = os.path.join(bench_root, "reference.npz")
-    (traces["bench", "newref"], bench_newref_s), launches, _ = launches_of(
-        "bench newref", lambda: traced_call(
-            bench_dir, "bench", "newref",
-            ["newref", *bench_files, ref_b, "--binsize", str(BENCH_BINSIZE),
-             "--refsize", str(REFSIZE), "--device", CLI_DEVICE]))
-    ref_a, ml, corrected = a_pass(samples, ref_b, device, BENCH_BINSIZE)
+    (traces["bench", "newref"], bench_newref_s), launches["bench"], _ = launches_of(
+        "traced bench newref",
+        lambda: traced_call(bench_dir, "bench", "newref", bench_argv(ref_b)))
+    bench_diff = _npz_differences(ref_b, ref_u)
+    if bench_diff:
+        problems.append(f"the traced bench reference differs in {bench_diff}")
+    ref_a, ml, corrected, genders = a_pass(samples, ref_b, device, BENCH_BINSIZE)
     del samples
     search = _stored_vs_exact(ref_a, ml, corrected, device,
                               (0, min(BENCH_CHECK_ROWS, ml.n_masked)))
+    chunk = _bench_chunk(ml, corrected, device)
     del corrected
     torch.cuda.empty_cache()
+    k1_run_bound = _k1_run_bound(ref_b, genders)
     bench = traces["bench", "newref"]
-    k1_ms = _kernel_ms(bench, "knn_bucket_kernel")
-    k2_ms = _kernel_ms(bench, "knn_topk_kernel")
-    device_ms = sum(s["device_ms"] for s, _ in bench.values())
+    kernels = {}
+    for key, name in NEWREF_TRACE_KERNELS.items():
+        kernels[key] = {}
+        for shape in ("main", "bench"):
+            traced = _kernel_events(traces[shape, "newref"], name)
+            if not traced:
+                problems.append(f"{shape}: no {name} event in newref's traced stages")
+            kernels[key][shape] = {"launches": launches[shape][key],
+                                   "traced_launches": traced}
+        kernels[key]["bench"].update(device_ms=_kernel_ms(bench, name),
+                                     chunk=chunk[key])
+    kernels["knn_bucket"]["bench"].update(
+        run_bound_ms=k1_run_bound,
+        launches_x_chunk_bound_ms=(launches["bench"]["knn_bucket"]
+                                   * chunk["knn_bucket"]["bound_ms"]))
+    k1_ms = kernels["knn_bucket"]["bench"]["device_ms"]
+    k2_ms = kernels["knn_topk"]["bench"]["device_ms"]
+    device_ms = sum(s[0]["device_ms"] for s in bench.values())
     emit("trace", main_walls_s={"newref": newref_s, "predict_plot": predict_s,
                                 "predict_batch": batch_s},
          main_reference_differs=diff, bench_cohort_s=cohort_s,
          bench_bins=int(sim.bins.sum()), bench_masked_rows=ml.n_masked,
          bench_controls=len(bench_files), bench_genome_scale=BENCH_GENOME_SCALE,
-         bench_newref_s=bench_newref_s, bench_launches=launches,
+         bench_newref_untraced_s=untraced_s, bench_newref_s=bench_newref_s,
+         bench_reference_differs=bench_diff, bench_launches=launches["bench"],
          bench_k1_device_ms=k1_ms, bench_k2_device_ms=k2_ms,
          bench_device_ms=device_ms,
          bench_knn_share_of_wall=(k1_ms + k2_ms) / 1e3 / bench_newref_s,
-         bench_search=search)
+         bench_search=search, kernels=kernels)
     for shape, stage in REQUIRED_TRACES:
         found = [s for (sh, _), stages in traces.items() if sh == shape
-                 for name, s in stages.items() if name == stage]
+                 for name, (s, _, _) in stages.items() if name == stage]
         if not found:
             problems.append(f"{shape}: no {stage} trace")
-        elif not all(s["kernel_events"] for s, _ in found):
+        elif not all(s["kernel_events"] for s in found):
             problems.append(f"{shape}: a {stage} trace holds no device kernel")
     if problems:
         raise AssertionError("; ".join(problems))
-    return {"knn_bucket": {"launches": launches["knn_bucket"], "device_ms": k1_ms},
-            "knn_topk": {"launches": launches["knn_topk"], "device_ms": k2_ms}}
+    return kernels
 
 
 def main():
@@ -1700,7 +1852,7 @@ def main():
     phase_cbs_stream(ref, t21, device)
     phase_plots(ref, t21, plate, files, device)
     torch.cuda.empty_cache()
-    ref_a, ml, corrected = a_pass(samples, ref, device)
+    ref_a, ml, corrected, _ = a_pass(samples, ref, device)
     result, k1_err, k2_err = phase_kernels(ref_a, ml, corrected, device)
     phase_checkpoint(files, ref, launches)
     phase_multidevice(ml, corrected, ref, plate, torch.device("cuda", 0))
@@ -1720,14 +1872,17 @@ def main():
          "library_ms": None, "product_ms": result["k1_product_ms"],
          "wide": [{k: w[k] for k in ("samples", "ms", "plain_ms", "bound_ms",
                                      "bound_by", "max_abs_err")} for w in wide_k1],
-         "bench_shape_trace": bench["knn_bucket"], "ptxas": ptxas.get("knn_bucket.cu")},
+         "main_shape_trace": bench["knn_bucket"]["main"],
+         "bench_shape": bench["knn_bucket"]["bench"], "ptxas": ptxas.get("knn_bucket.cu")},
         {"name": "knn_topk", "route": "cuda",
          "source": "wisecondorx_tpu_torch/csrc/knn_topk.cu",
          "replaces": "wisecondorx_tpu/ops/knn_pallas.py:228",
          "launches": launches["knn_topk"], "max_abs_err": k2_err,
          "ms": result["k2_ms"], "plain_ms": result["k2_plain_ms"],
          "bound_ms": result["k2_bound_ms"], "bound_by": result["k2_bound_by"],
-         "library_ms": result["k2_topk_ms"], "bench_shape_trace": bench["knn_topk"],
+         "library_ms": result["k2_topk_ms"],
+         "main_shape_trace": bench["knn_topk"]["main"],
+         "bench_shape": bench["knn_topk"]["bench"],
          "ptxas": ptxas.get("knn_topk.cu")},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

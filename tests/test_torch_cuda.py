@@ -133,6 +133,46 @@ def test_wrapper_rejects_what_the_kernels_do_not_take(dev):
         knn_cuda.extract_topk(vals, idx, drop, vals.shape[1] + 1)
 
 
+def test_pipelined_newref_equals_the_checkpointed_one(dev, tmp_path, monkeypatch):
+    """newref's pipelined passes on the card equal the serial
+    (checkpointed) build in every member, bit for bit; the pipeline's K1
+    launches come from the search threads, each on a stream other than
+    the device's default one, and the serial build's from this thread."""
+    import copy
+    import threading
+
+    from synthetic import CohortSim
+    from wisecondorx_tpu_torch.models.reference import NewrefConfig, build_reference
+
+    samples, _ = CohortSim(binsize=1e5, genome_scale=0.05, seed=3).cohort(12, 12)
+    launches = []
+    scan = knn_cuda.bucket_scan
+
+    def recording(*args, **kwargs):
+        d = args[0].device
+        launches.append((threading.current_thread().name,
+                         torch.cuda.current_stream(d) != torch.cuda.default_stream(d)))
+        return scan(*args, **kwargs)
+
+    monkeypatch.setattr(knn_cuda, "bucket_scan", recording)
+    built = {}
+    for mode, ckpt_dir in (("pipelined", None), ("checkpointed", str(tmp_path / "ck"))):
+        launches.clear()
+        cfg = NewrefConfig(binsize=100000, refsize=50, checkpoint_dir=ckpt_dir)
+        built[mode] = (build_reference([(copy.deepcopy(s), 100000) for s in samples],
+                                       cfg, dev)[0], list(launches))
+    (piped, piped_launches), (serial, serial_launches) = built["pipelined"], built["checkpointed"]
+    assert piped_launches and serial_launches
+    assert all(name.startswith("wcx-search-") and side for name, side in piped_launches)
+    assert not any(side for _, side in serial_launches)
+    assert piped.keys() == serial.keys()
+    for g in piped:
+        assert piped[g].keys() == serial[g].keys(), g
+        for key in piped[g]:
+            a, b = np.asarray(piped[g][key]), np.asarray(serial[g][key])
+            assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), f"{g}/{key}"
+
+
 def test_scene_raster_on_the_card_equals_the_cpu_raster(dev):
     """A figure's raster is integer work on host-computed geometry, so the
     card's equals the CPU's bit for bit."""

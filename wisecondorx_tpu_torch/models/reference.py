@@ -5,25 +5,48 @@ gender correction, usability mask, then per pass (A / F / M) depth
 normalization, PCA residual, PCA-distance bin filter, KNN neighbour search
 and null ratios, and finally the predict-side ``wcx_*`` caches.  The
 cohort is placed on the device once; every pass works on a row prefix and
-column subset of it.  Passes run one after the other.
+column subset of it.
 
 Quirk kept (SURVEY.md 2.9): the PCA-distance filter mutates the *shared*
 total mask through a slice view, so bins the A pass drops are absent from
 the later F/M passes too.
 
-The KNN search splits its rows over every process of a ``torchrun``-style
-run and over each process's devices (parallel/multihost.py), and with a
-checkpoint directory runs in row chunks whose results, like each pass's
-PCA and each finished pass, are saved as they complete
-(utils/checkpoint.py): a crashed build re-run with the same inputs
-resumes after its last saved stage and equals the uninterrupted build.
+The passes are pipelined as in the JAX package.  A pass splits into a
+*prep* (normalization, PCA and the filter; the filter mutates the shared
+mask, so the preps run one after another on the calling thread) and a
+*search* (KNN, null ratios, the tables' download), which reads only the
+pass's own snapshot and runs on a daemon thread ``wcx-search-<pass>``
+while the next pass preps.  On a CUDA device the search runs on a stream
+of its own, after an event recorded when its prep finished; the index
+table stays on the device for the null ratios, and the tables come back
+into pinned host memory on a copy stream while the null ratios compute.
+Each finished pass's predict caches (host float64) run on a two-worker
+pool.  Stages: ``newref.pass_<g>.prep`` (holding ``.pca``), ``.search``
+(the wait for the search), ``.knn`` and ``.nulls`` (timed on the search
+thread and never traced: its kernels land in whatever stage the calling
+thread traces), ``newref.predict_cache`` (the wait for the caches) and
+``newref.distok_cache``.
+
+A multi-process run and a checkpointed run build the passes one after
+another instead (the JAX package's rule): the KNN search splits its rows
+over every process of a ``torchrun``-style run and over each process's
+devices, with one all-gather that every process must reach in the same
+order (parallel/multihost.py); with a checkpoint directory it runs in row
+chunks whose results, like each pass's PCA and each finished pass, are
+saved as they complete (utils/checkpoint.py), so a crashed build re-run
+with the same inputs resumes after its last saved stage.  Either build
+equals the pipelined one bit for bit.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import os
+import sys
+import threading
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -43,6 +66,7 @@ from wisecondorx_tpu_torch.parallel.multihost import (
     knn_search_multihost,
     process_index_count,
 )
+from wisecondorx_tpu_torch.parallel.sharded_knn import knn_search_multidevice
 from wisecondorx_tpu_torch.utils.checkpoint import NewrefCheckpoint, fingerprint
 from wisecondorx_tpu_torch.utils.log import stage_timer
 
@@ -68,6 +92,15 @@ class NewrefConfig:
     #: KNN rows per checkpoint artifact when checkpointing is on.
     knn_checkpoint_rows: int = 32768
 
+
+#: The interpreter's thread switch interval (s) while the passes are
+#: pipelined.  The search threads give up and take back the interpreter
+#: lock around every device call; at Python's default of 5 ms a thread
+#: returning from one can wait that long while another thread runs
+#: Python.  In a cold process, whose kernels load lazily on first launch,
+#: that made the pipelined newref slower than the serial one on an H100
+#: (torch_newref_ab.py compares two checkouts' newref cold).
+PIPELINE_SWITCH_INTERVAL = 2e-4
 
 #: Keys of a finished pass dict (checkpoint round-trip) and the predict
 #: caches saved with it.
@@ -95,7 +128,7 @@ def build_reference(samples_with_binsize: list[tuple[dict, int]],
     cfg = config
     if _null_chooser is None:
         # Per-pass generator from (seed, pass): pass X's draw does not
-        # depend on which passes ran before it.
+        # depend on which passes ran, or finished, before it.
         def _null_chooser(gender, n):
             rng = (
                 np.random.default_rng()
@@ -137,41 +170,27 @@ def build_reference(samples_with_binsize: list[tuple[dict, int]],
             )
 
     ckpt = _open_checkpoint(cfg, matrix)
-    with stage_timer("newref.cohort_upload"):
+    device = torch.device(device)
+    # Timed where it copies, as the JAX package times its device upload.
+    with (stage_timer("newref.cohort_upload") if device.type != "cpu"
+          else contextlib.nullcontext()):
         cohort = torch.as_tensor(matrix, dtype=work_dtype(device),
                                  device=device)
-    passes = {}
-    for gender, cols in plan:
-        saved = _restore(ckpt, f"pass_{gender}")
-        if saved is not None:
-            logging.info("Pass %s restored from checkpoint", gender)
-            # The PCA-distance filter mutated the shared mask during this
-            # pass; replay that mutation for the later passes.
-            after = saved["total_mask_after"]
-            total_mask[: len(after)] &= after
-            passes[gender] = {k: saved[k] for k in _PASS_KEYS if k in saved}
-            passes[gender]["binsize"] = int(saved["binsize"])
-            continue
-        with stage_timer(f"newref.pass_{gender}"):
-            passes[gender] = _build_pass(
-                gender, cohort, cols, layout, total_mask, cfg, _null_chooser,
-                ckpt, devices or [device],
-            )
-        with stage_timer(f"newref.pass_{gender}.predict_cache"):
-            passes[gender].update(
-                _predict_cache(gender, passes[gender]["distances"])
-            )
-        pass_bins = layout.truncated(LAST_CHR[gender]).total_bins
-        ckpt.save(f"pass_{gender}", total_mask_after=total_mask[:pass_bins],
-                  **passes[gender])
+    args = (plan, cohort, layout, total_mask, cfg, _null_chooser,
+            devices or [device])
+    if process_index_count()[1] == 1 and not ckpt.enabled:
+        passes = _build_pipelined(*args)
+    else:
+        passes = _build_serial(*args, ckpt)
 
     # Bit-packed distance < cutoff masks at the default --maskrepeats 5.
     cutoffs = passes["A"]["wcx_cutoffs"]
     if len(cutoffs) >= 5:
-        c5 = float(cutoffs[4])
-        for p in passes.values():
-            ok = np.asarray(p["distances"], np.float64) < c5
-            p["wcx_distok"] = np.packbits(ok, axis=1)
+        with stage_timer("newref.distok_cache"):
+            c5 = float(cutoffs[4])
+            for p in passes.values():
+                ok = np.asarray(p["distances"], np.float64) < c5
+                p["wcx_distok"] = np.packbits(ok, axis=1)
 
     meta = {
         "is_nipt": nipt,
@@ -186,6 +205,117 @@ def build_reference(samples_with_binsize: list[tuple[dict, int]],
         except OSError:
             pass
     return passes, meta
+
+
+def _build_pipelined(plan, cohort, layout, total_mask, cfg, null_chooser,
+                     devices):
+    """Every pass's prep on this thread, one after another; each pass's
+    search on its own daemon thread, started as soon as its prep is done;
+    each pass's predict caches on a two-worker pool, submitted by its
+    search thread as the search finishes.  On an error anywhere the
+    running searches stop at their next step and are joined, and the
+    error is raised."""
+    passes, searches, caches = {}, {}, {}
+    stop = threading.Event()
+    pool = ThreadPoolExecutor(max_workers=2,
+                              thread_name_prefix="wcx-predict-cache")
+    switch_interval = sys.getswitchinterval()
+    sys.setswitchinterval(PIPELINE_SWITCH_INTERVAL)
+
+    def search_then_cache(prepped, ready):
+        built = _search_device(prepped, cfg, devices, ready, stop)
+        return built, pool.submit(_predict_cache, prepped.gender,
+                                  built["distances"])
+
+    try:
+        for gender, cols in plan:
+            with stage_timer(f"newref.pass_{gender}.prep"):
+                prepped = _prep_pass(gender, cohort, cols, layout,
+                                     total_mask, cfg, null_chooser)
+                ready = _record_event(prepped.corrected)
+            searches[gender] = _DaemonFuture(
+                lambda p=prepped, r=ready: search_then_cache(p, r),
+                name=f"wcx-search-{gender}",
+            )
+            del prepped, ready  # the search thread holds the pass now
+        for gender, fut in searches.items():
+            with stage_timer(f"newref.pass_{gender}.search"):
+                passes[gender], caches[gender] = fut.result()
+        with stage_timer("newref.predict_cache"):
+            for gender, fut in caches.items():
+                passes[gender].update(fut.result())
+    except BaseException:
+        stop.set()
+        for fut in searches.values():
+            fut.wait()
+        raise
+    finally:
+        pool.shutdown(cancel_futures=True)
+        sys.setswitchinterval(switch_interval)
+    return passes
+
+
+def _build_serial(plan, cohort, layout, total_mask, cfg, null_chooser,
+                  devices, ckpt):
+    """The passes one after another (a multi-process or checkpointed
+    build), each saved with its predict caches as it completes."""
+    passes = {}
+    for gender, cols in plan:
+        saved = _restore(ckpt, f"pass_{gender}")
+        if saved is not None:
+            logging.info("Pass %s restored from checkpoint", gender)
+            # The PCA-distance filter mutated the shared mask during this
+            # pass; replay that mutation for the later passes.
+            after = saved["total_mask_after"]
+            total_mask[: len(after)] &= after
+            passes[gender] = {k: saved[k] for k in _PASS_KEYS if k in saved}
+            passes[gender]["binsize"] = int(saved["binsize"])
+            continue
+        with stage_timer(f"newref.pass_{gender}"):
+            prepped = _prep_pass(gender, cohort, cols, layout, total_mask,
+                                 cfg, null_chooser, ckpt)
+            passes[gender] = _search_host(prepped, cfg, devices, ckpt)
+        with stage_timer("newref.predict_cache"):
+            passes[gender].update(
+                _predict_cache(gender, passes[gender]["distances"])
+            )
+        pass_bins = layout.truncated(LAST_CHR[gender]).total_bins
+        ckpt.save(f"pass_{gender}", total_mask_after=total_mask[:pass_bins],
+                  **passes[gender])
+    return passes
+
+
+class _DaemonFuture:
+    """Run ``fn`` on a daemon thread; ``result()`` re-raises its error.
+
+    Unlike a ThreadPoolExecutor's workers, a daemon thread is not joined
+    at interpreter exit, so a search cannot hold up a process that is
+    exiting with an error."""
+
+    def __init__(self, fn, name):
+        self._out = self._exc = None
+        self._thread = threading.Thread(target=self._run, args=(fn,),
+                                        name=name, daemon=True)
+        self._thread.start()
+
+    def _run(self, fn):
+        try:
+            self._out = fn()
+        except BaseException as e:  # re-raised in result()
+            self._exc = e
+
+    def wait(self):
+        self._thread.join()
+
+    def result(self):
+        self._thread.join()
+        if self._exc is not None:
+            raise self._exc
+        return self._out
+
+
+class _Stopped(Exception):
+    """A search stopped because the build failed elsewhere."""
 
 
 def _open_checkpoint(cfg, matrix) -> NewrefCheckpoint:
@@ -250,19 +380,39 @@ def cohort_matrix(samples_with_binsize: list[tuple[dict, int]],
             "Provide at least 10 samples to enable the generation of a "
             "reference."
         )
-    with stage_timer("newref.matrix"):
+    # The JAX package stacks the samples inside its mask stage.
+    with stage_timer("newref.mask"):
         matrix, layout = samples_to_matrix(samples)
     return matrix, layout, genders, trained_cutoff, nipt
 
 
-def _build_pass(gender, cohort, cols, layout, total_mask, cfg, null_chooser,
-                ckpt, devices):
-    """One reference pass.  ``total_mask`` is mutated in place by the
-    PCA-distance filter through the ``pass_mask`` view."""
+@dataclasses.dataclass
+class _Prepped:
+    """A pass after its prep: what its search reads, and nothing shared."""
+
+    gender: str
+    corrected: torch.Tensor
+    components: np.ndarray
+    mean: np.ndarray
+    ml: MaskedLayout  # holds a copy of the pass mask
+    chosen: np.ndarray  # the null-ratio samples
+
+    @property
+    def first_row(self) -> int:
+        """Gonosomal passes search only their chrX/chrY rows; autosome
+        rows get the reference's 0-index / 1.0-distance placeholders."""
+        return 0 if self.gender == "A" else int(self.ml.masked_chr_starts[22])
+
+
+def _prep_pass(gender, cohort, cols, layout, total_mask, cfg, null_chooser,
+               ckpt=None):
+    """The serial part of a pass: its PCA (restored from ``ckpt`` when
+    saved there) and the PCA-distance filter, which mutates
+    ``total_mask`` in place through the ``pass_mask`` view."""
     tl = layout.truncated(LAST_CHR[gender])
     pass_mask = total_mask[: tl.total_bins]  # view: the aliasing is intended
 
-    prep = _restore(ckpt, f"prep_{gender}")
+    prep = _restore(ckpt, f"prep_{gender}") if ckpt is not None else None
     if prep is not None:
         logging.info("Pass %s: PCA restored from checkpoint", gender)
         pass_mask &= prep["mask_after"]  # replay the filter's mutation
@@ -271,64 +421,191 @@ def _build_pass(gender, cohort, cols, layout, total_mask, cfg, null_chooser,
     else:
         corrected, components, mean = _pass_pca(gender, cohort, cols, tl,
                                                 pass_mask, cfg)
-        if ckpt.enabled:
+        if ckpt is not None and ckpt.enabled:
             ckpt.save(f"prep_{gender}", corrected=corrected.cpu().numpy(),
                       components=components, mean=mean, mask_after=pass_mask)
+    return _Prepped(gender, corrected, components, mean,
+                    MaskedLayout(tl, pass_mask.copy()),
+                    np.asarray(null_chooser(gender, corrected.shape[1])))
 
-    ml = MaskedLayout(tl, pass_mask.copy())
+
+def _search_host(p: _Prepped, cfg, devices, ckpt):
+    """The search of a serial build: the KNN rows into host tables (in
+    row chunks saved as artifacts with a checkpoint, in one search over
+    every process otherwise), then the null ratios from the whole
+    gathered table."""
+    ml, r0 = p.ml, p.first_row
     n_masked = ml.n_masked
-    # Gonosomal passes search only their chrX/chrY rows; autosome rows get
-    # the reference's 0-index / 1.0-distance placeholders.
-    r0 = 0 if gender == "A" else int(ml.masked_chr_starts[22])
-    chosen = np.asarray(null_chooser(gender, corrected.shape[1]))
+    indexes = np.zeros((n_masked, cfg.refsize), dtype=np.int32)
+    # The kernel path returns float32 distances, the exact path the data's
+    # type.
+    np_dtype = (np.float32 if p.corrected.is_cuda
+                or p.corrected.dtype == torch.float32 else np.float64)
+    distances = np.ones((n_masked, cfg.refsize), dtype=np_dtype)
 
-    with stage_timer(f"newref.pass_{gender}.knn"):
-        indexes = np.zeros((n_masked, cfg.refsize), dtype=np.int32)
-        # The kernel path returns float32 distances, the exact path the
-        # data's type.
-        np_dtype = (np.float32 if corrected.is_cuda
-                    or corrected.dtype == torch.float32 else np.float64)
-        distances = np.ones((n_masked, cfg.refsize), dtype=np_dtype)
-        # With a checkpoint, row chunks of one artifact each: a killed
-        # build loses at most one chunk of search.
-        step = (max(1024, cfg.knn_checkpoint_rows) if ckpt.enabled
-                else max(n_masked - r0, 1))
+    def search(a, b):
+        stats: dict = {}
+        idx, dist = knn_search_multihost(
+            p.corrected, ml.chr_of_masked_bin, ml.masked_chr_starts,
+            ml.masked_bins_per_chr, ref_size=cfg.refsize, row_range=(a, b),
+            devices=devices, stats=stats,
+        )
+        _log_reruns(p.gender, stats)
+        return idx, dist
+
+    if ckpt.enabled:
+        # Row chunks of one artifact each: a killed build loses at most
+        # one chunk of search.
+        step = max(1024, cfg.knn_checkpoint_rows)
         for a in range(r0, n_masked, step):
             b = min(a + step, n_masked)
-            part = _restore(ckpt, f"knn_{gender}_{a}_{b}")
+            part = _restore(ckpt, f"knn_{p.gender}_{a}_{b}")
             if part is None:
-                stats: dict = {}
-                idx, dist = knn_search_multihost(
-                    corrected, ml.chr_of_masked_bin, ml.masked_chr_starts,
-                    ml.masked_bins_per_chr, ref_size=cfg.refsize,
-                    row_range=(a, b), devices=devices, stats=stats,
-                )
-                if stats.get("flagged_rows"):
-                    logging.info(
-                        "KNN pass %s: %d of %d rows rerun exactly", gender,
-                        stats["flagged_rows"], stats["n_rows"],
-                    )
-                ckpt.save(f"knn_{gender}_{a}_{b}", idx=idx, dist=dist)
+                idx, dist = search(a, b)
+                ckpt.save(f"knn_{p.gender}_{a}_{b}", idx=idx, dist=dist)
             else:
                 idx, dist = part["idx"], part["dist"]
             indexes[a:b] = idx
             distances[a:b] = dist
+    else:
+        with stage_timer(f"newref.pass_{p.gender}.knn"):
+            if r0 < n_masked:
+                indexes[r0:], distances[r0:] = search(r0, n_masked)
 
-    with stage_timer(f"newref.pass_{gender}.nulls"):
-        # From the whole index table, after every part has been gathered.
+    with stage_timer(f"newref.pass_{p.gender}.nulls"):
         null_ratios = knn_ops.compute_null_ratios(
-            corrected, torch.as_tensor(indexes[r0:], device=corrected.device),
-            chosen, placeholder_rows=r0,
+            p.corrected,
+            torch.as_tensor(indexes[r0:], device=p.corrected.device),
+            p.chosen, placeholder_rows=r0,
         ).cpu().numpy()
+    return _pass_dict(p, cfg, indexes, distances, null_ratios)
 
+
+def _search_device(p: _Prepped, cfg, devices, ready, stop):
+    """The search of a pipelined pass, on its search thread: the KNN
+    tables stay on the pass's device, the null ratios are computed from
+    the device index table, and the tables' download runs beside them.
+    On a CUDA device all of it runs on a stream of this thread's own,
+    which first waits for ``ready`` (recorded after the prep produced
+    ``corrected`` on the prep's stream).  ``stop`` set: raise before the
+    next step."""
+    dev = p.corrected.device
+    ml, r0 = p.ml, p.first_row
+    n_masked = ml.n_masked
+    stream = None
+    if dev.type == "cuda":
+        # A new thread starts on the device's default stream, where its
+        # kernels would queue behind the next pass's prep.
+        stream = torch.cuda.Stream(dev)
+        stream.wait_event(ready)
+        p.corrected.record_stream(stream)
+    with (torch.cuda.stream(stream) if stream is not None
+          else contextlib.nullcontext()):
+        _check(stop)
+        with stage_timer(f"newref.pass_{p.gender}.knn", trace=False):
+            stats: dict = {}
+            idx, dist = knn_search_multidevice(
+                p.corrected, ml.chr_of_masked_bin, ml.masked_chr_starts,
+                ml.masked_bins_per_chr, ref_size=cfg.refsize,
+                row_range=(r0, n_masked), devices=devices, stats=stats,
+                out_device=dev,
+            )
+            _log_reruns(p.gender, stats)
+            idx32 = idx.to(torch.int32)
+            searched = _record_event(idx32)
+            _check(stop)
+            # The null-ratio chunks are queued first, the tables' download
+            # after them on its own stream, so the two overlap.
+            nulls = knn_ops.compute_null_ratios(p.corrected, idx,
+                                                p.chosen, placeholder_rows=r0)
+            del idx
+            indexes, distances, tables_done = _download_tables(
+                idx32, dist, searched, n_masked, r0, cfg.refsize
+            )
+            del idx32, dist
+            nulls_host, nulls_done = _download(nulls)
+            del nulls
+            if tables_done is not None:
+                tables_done.synchronize()
+        with stage_timer(f"newref.pass_{p.gender}.nulls", trace=False):
+            if nulls_done is not None:
+                nulls_done.synchronize()
+            null_ratios = nulls_host.numpy()
+    return _pass_dict(p, cfg, indexes, distances, null_ratios)
+
+
+def _check(stop):
+    if stop.is_set():
+        raise _Stopped("the build failed elsewhere")
+
+
+def _record_event(t: torch.Tensor):
+    """An event on the current stream of ``t``'s CUDA device, or None on
+    the CPU."""
+    if not t.is_cuda:
+        return None
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(t.device))
+    return event
+
+
+def _download(t: torch.Tensor):
+    """Start copying ``t`` to the host on the current stream.  Returns
+    (host tensor, event marking the copy's end, or None on the CPU)."""
+    if not t.is_cuda:
+        return t, None
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    return host, _record_event(t)
+
+
+def _download_tables(idx32, dist, searched, n_masked, r0, refsize):
+    """The pass's host tables of ``n_masked`` rows: rows ``r0:`` from the
+    searched ``idx32``/``dist``, the first ``r0`` rows the placeholders
+    (index 0, distance 1.0).  On a CUDA device the copy runs on a stream
+    of its own after the event ``searched`` into pinned memory; the
+    returned event marks its end and the tables are complete once it has
+    completed.  Returns (indexes, distances, event or None) with numpy
+    tables."""
+    pin = idx32.is_cuda
+    indexes = torch.empty((n_masked, refsize), dtype=torch.int32,
+                          pin_memory=pin)
+    distances = torch.empty((n_masked, refsize), dtype=dist.dtype,
+                            pin_memory=pin)
+    indexes[:r0] = 0
+    distances[:r0] = 1.0
+    done = None
+    if pin:
+        copy = torch.cuda.Stream(idx32.device)
+        copy.wait_event(searched)
+        with torch.cuda.stream(copy):
+            indexes[r0:].copy_(idx32, non_blocking=True)
+            distances[r0:].copy_(dist, non_blocking=True)
+            done = _record_event(idx32)
+        # Allocated on the search stream, read on the copy stream.
+        idx32.record_stream(copy)
+        dist.record_stream(copy)
+    else:
+        indexes[r0:] = idx32
+        distances[r0:] = dist
+    return indexes.numpy(), distances.numpy(), done
+
+
+def _log_reruns(gender, stats):
+    if stats.get("flagged_rows"):
+        logging.info("KNN pass %s: %d of %d rows rerun exactly", gender,
+                     stats["flagged_rows"], stats["n_rows"])
+
+
+def _pass_dict(p: _Prepped, cfg, indexes, distances, null_ratios):
     return {
         "binsize": cfg.binsize,
-        "mask": ml.mask,
-        "bins_per_chr": np.asarray(tl.bins_per_chr),
-        "masked_bins_per_chr": ml.masked_bins_per_chr,
-        "masked_bins_per_chr_cum": ml.masked_bins_per_chr_cum,
-        "pca_components": components,
-        "pca_mean": mean,
+        "mask": p.ml.mask,
+        "bins_per_chr": np.asarray(p.ml.layout.bins_per_chr),
+        "masked_bins_per_chr": p.ml.masked_bins_per_chr,
+        "masked_bins_per_chr_cum": p.ml.masked_bins_per_chr_cum,
+        "pca_components": p.components,
+        "pca_mean": p.mean,
         "indexes": indexes,
         "distances": distances,
         "null_ratios": null_ratios,

@@ -7,7 +7,9 @@ device runs the full single-device search (:func:`ops.knn.knn_search`:
 K1 + K2 on a CUDA device) on its own copy of the data.  Rows are
 independent and every product is computed at a shape that does not
 depend on the split (ops/knn.py, ops/knn_cuda.py), so the result equals
-the one-device search bit for bit.  The JAX package's GSPMD variant
+the one-device search bit for bit.  The result comes back as host arrays,
+or gathered on one device for newref's pipelined passes, whose null
+ratios read the index table where it lies.  The JAX package's GSPMD variant
 (``knn_search_sharded``) serves only its mesh dry run and is not ported.
 """
 
@@ -28,27 +30,51 @@ def split_bounds(r0: int, r1: int, parts: int) -> np.ndarray:
     return np.linspace(r0, r1, parts + 1).astype(int)
 
 
+def _indexed(dev) -> torch.device:
+    """``dev`` as a torch.device, a CUDA device with its index."""
+    dev = torch.device(dev)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
 def knn_search_multidevice(data: torch.Tensor, chr_of_bin, masked_chr_starts,
                            masked_bins_per_chr, ref_size: int = 300,
                            row_range: tuple[int, int] | None = None,
-                           devices=None, stats: dict | None = None):
+                           devices=None, stats: dict | None = None,
+                           out_device=None):
     """Row-partitioned KNN over ``devices`` (default: ``data``'s device).
 
     Same contract as :func:`ops.knn.knn_search`, returned as host numpy
-    arrays (indexes int64, distances in ``data``'s dtype).  One part only
-    when there is one device or fewer than 4 rows per device.  ``stats``
-    receives the parts' summed ``flagged_rows`` and ``n_rows``."""
-    devices = [torch.device(d) for d in (devices or [data.device])]
+    arrays (indexes int64, distances in ``data``'s dtype), or with
+    ``out_device`` as tensors gathered on that device, ordered after the
+    search on the caller's current stream there.  One part only when
+    there is one device or fewer than 4 rows per device; it runs on the
+    calling thread and its current stream.  Several parts run on one
+    thread each, and a part on a CUDA device on a stream of its own that
+    first waits for the caller's current stream there (a new thread
+    starts on the device's default stream).  ``stats`` receives the
+    parts' summed ``flagged_rows`` and ``n_rows``."""
+    devices = [_indexed(d) for d in (devices or [data.device])]
     n = data.shape[0]
     r0, r1 = row_range if row_range is not None else (0, n)
     if len(devices) <= 1 or r1 - r0 < 4 * len(devices):
         devices = devices[:1]
     bounds = split_bounds(r0, r1, len(devices))
     copies = {dev: data.to(dev) for dev in devices}  # one per distinct device
+    callers = {dev: torch.cuda.current_stream(dev) for dev in copies
+               if dev.type == "cuda"}
+    threaded = len(devices) > 1
 
     def run(dev, a, b):
         part_stats: dict = {}
-        ctx = (torch.cuda.device(dev) if dev.type == "cuda"
+        stream = None
+        if threaded and dev.type == "cuda":
+            stream = torch.cuda.Stream(dev)
+            stream.wait_stream(callers[dev])
+            copies[dev].record_stream(stream)  # the caller's, read here
+        ctx = (torch.cuda.stream(stream) if stream is not None
+               else torch.cuda.device(dev) if dev.type == "cuda"
                else contextlib.nullcontext())
         with ctx:
             idx, dist = knn_search(
@@ -56,7 +82,13 @@ def knn_search_multidevice(data: torch.Tensor, chr_of_bin, masked_chr_starts,
                 masked_bins_per_chr, ref_size=ref_size, row_range=(a, b),
                 stats=part_stats,
             )
-            return idx.cpu().numpy(), dist.cpu().numpy(), part_stats
+            if out_device is None:
+                return idx.cpu().numpy(), dist.cpu().numpy(), part_stats, None
+            done = None
+            if stream is not None:
+                done = torch.cuda.Event()
+                done.record(stream)
+            return idx, dist, part_stats, done
 
     jobs = [(dev, int(a), int(b))
             for dev, a, b in zip(devices, bounds[:-1], bounds[1:])]
@@ -71,6 +103,20 @@ def knn_search_multidevice(data: torch.Tensor, chr_of_bin, masked_chr_starts,
             flagged_rows=sum(p[2].get("flagged_rows", 0) for p in parts),
             n_rows=r1 - r0,
         )
-    return (np.concatenate([p[0] for p in parts]),
-            np.concatenate([p[1] for p in parts]))
-
+    if out_device is None:
+        return (np.concatenate([p[0] for p in parts]),
+                np.concatenate([p[1] for p in parts]))
+    out_device = _indexed(out_device)
+    gathered = []
+    for idx, dist, _, done in parts:
+        if done is not None:
+            # Made on the part's stream, read on the caller's.
+            caller = callers[idx.device]
+            caller.wait_event(done)
+            idx.record_stream(caller)
+            dist.record_stream(caller)
+        gathered.append((idx.to(out_device), dist.to(out_device)))
+    if len(gathered) == 1:
+        return gathered[0]
+    return (torch.cat([g[0] for g in gathered]),
+            torch.cat([g[1] for g in gathered]))

@@ -71,10 +71,13 @@ def _sync_devices() -> None:
 
 
 @contextlib.contextmanager
-def stage_timer(name: str):
+def stage_timer(name: str, trace: bool = True):
     """Log and record a stage's host wall-clock seconds; with
-    ``WCX_PROFILE_DIR`` set, trace it when no other stage is traced."""
-    profile_dir = os.environ.get("WCX_PROFILE_DIR")
+    ``WCX_PROFILE_DIR`` set, trace it when no other stage is traced.
+    ``trace=False`` keeps the stage out of the traces in any case (the
+    newref pipeline's search threads: their kernels land in whatever
+    stage the calling thread traces)."""
+    profile_dir = os.environ.get("WCX_PROFILE_DIR") if trace else None
     trace_cm = contextlib.nullcontext()
     got_trace = False
     if profile_dir:
