@@ -19,7 +19,16 @@ Phases, each printing one JSON line on stdout (logs go to stderr):
 5. predict -- ``predict --bed`` (streamed reference loader, device CBS
    permutation stream) on a trisomy-21 sample (must call a chr21 gain, and
    the bins table must cover every bin, and no other whole chromosome) and
-   on a euploid male (must call no whole-chromosome aberration); then
+   on a euploid male (must call no whole-chromosome aberration), each
+   with its ``predict.load.*`` stages; then each sample's two passes'
+   tables built again on the card by the streamed loader (stored int32
+   indexes and the packed cutoff bits uploaded, translated there), with
+   the bytes moved and the translate and upload seconds, held bit for bit
+   against the plain numpy translation of the same members, whose host
+   seconds stand beside them; for the trisomy-21 sample, its autosomal and
+   gonosomal passes dispatched under
+   ``torch.cuda.set_sync_debug_mode("error")`` (any host sync before the
+   first fetch fails) and equal to the sequential passes; then
    ``cbs_rounds``: the CBS rounds of both predicts, which must all be
    device-stream rounds;
 6. predict_batch -- ``predict-batch --bed`` on a plate of 24 samples
@@ -82,7 +91,12 @@ Phases, each printing one JSON line on stdout (logs go to stderr):
    on bench.py's headline shape (15 kb bins over the whole genome, 250 F +
    250 M controls, seed 2), first untraced (its wall, stages, peak device
    memory and .npz size), then each through the CLI with ``WCX_PROFILE_DIR``
-   set (only for those calls) to ``build/chip_smoke/trace/<shape>``: one
+   set (only for those calls) to ``build/chip_smoke/trace/<shape>``;
+   after the untraced bench newref, one untraced ``predict --bed`` of a
+   trisomy-21 sample from the same simulator against its reference
+   (``bench_predict``: wall, ``predict.load.*`` stages, peak device memory,
+   the tables on the card against the plain translation's host seconds;
+   chr21's gain and no other whole-chromosome call); one
    JSON line per traced stage name (:func:`trace_summary`: window, device
    busy ms and share, top device operations, longest idle gaps with their
    host ranges) and one per call (wall, busy share over its traced stages,
@@ -343,7 +357,14 @@ def phase_newref(files):
     return ref
 
 
-def phase_predict(ref, case, tag, want_gain_chr):
+def phase_predict(ref, case, tag, want_gain_chr, check_dispatch=False):
+    """``predict --bed`` of ``case`` through the CLI, then its passes'
+    tables built again on the card and held against the plain numpy
+    translation (:func:`tables_vs_plain`) and, with ``check_dispatch``,
+    both passes dispatched with syncs made errors
+    (:func:`dispatch_without_sync`)."""
+    import torch
+
     from wisecondorx_tpu_torch import cli
     from wisecondorx_tpu_torch.utils.log import reset_stage_times, stage_times
 
@@ -352,12 +373,16 @@ def phase_predict(ref, case, tag, want_gain_chr):
     t0 = time.perf_counter()
     cli.main(["predict", case, ref, outid, "--bed", "--device", CLI_DEVICE])
     wall = time.perf_counter() - t0
+    stages = stage_times()
     gender, rows, whole = read_calls(outid, ref)
+    tables = tables_vs_plain(ref, gender, torch.device(CLI_DEVICE))
+    dispatch = (dispatch_without_sync(ref, case, torch.device(CLI_DEVICE), BINSIZE)
+                if check_dispatch else None)
     emit("predict", sample=tag, gender=gender, seconds=round(wall, 3),
-         cbs_seconds=round(stage_times()["predict.cbs"], 3),
+         cbs_seconds=round(stages["predict.cbs"], 3),
          aberrations=[f"{r[0]}:{r[1]}-{r[2]}:{r[-1]}" for r in rows],
-         whole_chromosome=whole,
-         stages={k: round(v, 3) for k, v in stage_times().items()})
+         whole_chromosome=whole, tables=tables, dispatch=dispatch,
+         stages={k: round(v, 3) for k, v in stages.items()})
     planted = set() if want_gain_chr is None else {f"{want_gain_chr}:gain"}
     if not planted <= set(whole):
         raise AssertionError(f"{tag}: no chr{want_gain_chr} gain in {rows}")
@@ -365,7 +390,97 @@ def phase_predict(ref, case, tag, want_gain_chr):
         raise AssertionError(f"{tag}: whole-chromosome calls {whole}")
 
 
-def read_calls(outid, ref):
+def tables_vs_plain(ref, gender, device, maskrepeats=5):
+    """The A and ``gender`` passes' tables of ``ref`` built on ``device``
+    by the streamed loader (stored indexes and cutoff source uploaded,
+    translated on the card), each held bit for bit against the plain
+    numpy translation of the same members (the host path the port ran
+    before), which is timed on the host.  Fails on a difference.  Returns
+    {pass: record}."""
+    import numpy as np
+    import torch
+
+    from wisecondorx_tpu_torch.io.npz import load_member_rows
+    from wisecondorx_tpu_torch.models import ref_loader
+    from wisecondorx_tpu_torch.utils.log import reset_stage_times, stage_times
+
+    out = {}
+    reset_stage_times()
+    with ref_loader.ReferenceLoader(ref, device) as loader:
+        loader.start([gender], maskrepeats)
+        cutoff, a_small = loader.cutoff(), loader.passes["A"]
+        for g in ("A", gender):
+            tables = loader.tables(g)
+            got = tables.sentinel_idx.cpu().numpy()
+            small, suffix = loader.passes[g], "" if g == "A" else f".{g}"
+            ct = ref_loader.pass_ct(small, g)
+            idx = load_member_rows(ref, f"indexes{suffix}", ct)
+            dist = (load_member_rows(ref, f"distances{suffix}", ct)
+                    if ref_loader.needs_distances(small, a_small, cutoff) else None)
+            t0 = time.perf_counter()
+            plain = ref_loader.plain_sentinel(small, g, cutoff, a_small, idx, dist)
+            plain_s = time.perf_counter() - t0
+            rows, k = plain.shape
+            out[g] = dict(
+                rows=rows, k=k, dtype=str(tables.sentinel_idx.dtype),
+                source=ref_loader._cutoff_source(small, a_small, cutoff, ct, dist)[0],
+                upload_bytes=tables.upload_bytes,
+                parent_upload_bytes=(rows * k * 8 + tables.components.nbytes
+                                     + tables.mean.nbytes),
+                plain_translate_s=plain_s, equal=bool(np.array_equal(got, plain)),
+                masked=int((plain < 0).sum()))
+            if tables.sentinel_idx.dtype != torch.int64 or not out[g]["equal"]:
+                raise AssertionError(f"pass {g}: the card's table differs from "
+                                     f"the plain translation: {out[g]}")
+    stages = stage_times()
+    for g in out:
+        for stage in ("translate", "upload"):
+            out[g][f"{stage}_s"] = stages[f"predict.load.{stage}_{g}"]
+    return out
+
+
+def dispatch_without_sync(ref, case, device, binsize):
+    """``case``'s autosomal and gonosomal passes dispatched one after the
+    other with ``torch.cuda.set_sync_debug_mode("error")``, so that any
+    host sync between the first dispatch and the first fetch raises; the
+    fetched results must equal ``_pass_normalize``'s on the same tables.
+    Returns a record."""
+    import numpy as np
+    import torch
+
+    from wisecondorx_tpu_torch.models import predictor
+    from wisecondorx_tpu_torch.models.ref_loader import ReferenceLoader
+
+    cfg = predictor.PredictConfig()
+    sample = np.load(case, allow_pickle=True)["sample"].item()
+    with ReferenceLoader(ref, device) as loader:
+        sample, _, ref_gender, _ = predictor.prepare_sample(
+            sample, binsize, loader.passes, loader.meta, cfg)
+        loader.start([ref_gender], cfg.maskrepeats)
+        passes = [(loader.passes[g], loader.tables(g)) for g in ("A", ref_gender)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            queued = [predictor._pass_normalize_dispatch(sample, p, t)
+                      for p, t in passes]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        dispatch_s = time.perf_counter() - t0
+        fetched = [predictor._pass_fetch(q, t) for q, (_, t) in zip(queued, passes)]
+        fetch_s = time.perf_counter() - t0 - dispatch_s
+        sequential = [predictor._pass_normalize(sample, p, t) for p, t in passes]
+    for got, want in zip(fetched, sequential):
+        for g, w in zip(got, want):
+            if not np.array_equal(g, w, equal_nan=True):
+                raise AssertionError("the dispatched passes differ from "
+                                     "_pass_normalize on the same tables")
+    return dict(passes=["A", ref_gender], sync_debug="error",
+                dispatch_s=dispatch_s, fetch_s=fetch_s,
+                equal_to_sequential=True)
+
+
+def read_calls(outid, ref, binsize=BINSIZE):
     """(gender, aberration rows, whole-chromosome calls "chr:type") of a
     predict output; checks that the bins table covers every bin."""
     import numpy as np
@@ -383,7 +498,7 @@ def read_calls(outid, ref):
     names = {str(c + 1): c for c in range(22)} | {"X": 22, "Y": 23}
     whole = []
     for r in rows:
-        span = (int(r[2]) - int(r[1]) + 1) / BINSIZE
+        span = (int(r[2]) - int(r[1]) + 1) / binsize
         if span >= 0.9 * bins_per_chr[names[r[0]]]:
             whole.append(f"{r[0]}:{r[-1]}")
     return gender, rows, whole
@@ -1696,6 +1811,129 @@ def _k1_run_bound(ref_path, genders):
     return ops / H100_TF32_FLOPS * 1e3
 
 
+def bench_predict(ref, case, outid, samples):
+    """One untraced ``predict --bed`` of the bench-shape trisomy-21
+    sample through the CLI: its wall, exit code, reference-load stages and
+    peak device memory, then its tables built again on the card beside
+    the plain translation's host seconds (:func:`tables_vs_plain`).  It
+    must call chr21's gain and nothing else whole-chromosome, unless the
+    reference cannot serve a predict: a gonosomal pass whose PCA-distance
+    filter dropped autosomal bins after the autosomal pass was saved
+    (the reference tool's shared-mask quirk) holds fewer autosome rows
+    than the autosomal pass, and predict then refuses it with exit code 1,
+    as the JAX package does.  That case is accepted only where the
+    reference shows it (:func:`gonosomal_misalignment`, with ``samples``
+    the cohort the reference was built from) and is reported."""
+    import torch
+
+    from wisecondorx_tpu_torch import cli
+    from wisecondorx_tpu_torch.utils.log import reset_stage_times, stage_times
+
+    reset_stage_times()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        cli.main(["predict", case, ref, outid, "--bed", "--device", CLI_DEVICE])
+        code = 0
+    except SystemExit as e:
+        code = e.code
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    stages = stage_times()
+    device = torch.device(CLI_DEVICE)
+    record = dict(seconds=wall, exit_code=code, peak_memory_bytes=peak,
+                  tables=tables_vs_plain(ref, "F", device),
+                  load_stages={k: v for k, v in stages.items()
+                               if k.startswith("predict.load.")},
+                  stages={k: round(v, 3) for k, v in stages.items()})
+    misaligned = gonosomal_misalignment(ref, samples, device, BENCH_BINSIZE)
+    if code == 0:
+        gender, rows, whole = read_calls(outid, ref, BENCH_BINSIZE)
+        record.update(gender=gender, whole_chromosome=whole,
+                      aberrations=[f"{r[0]}:{r[1]}-{r[2]}:{r[-1]}" for r in rows])
+    record["misaligned_passes"] = misaligned
+    emit("bench_predict", **record)
+    if code == 0 and set(record["whole_chromosome"]) != {"21:gain"}:
+        raise AssertionError(f"bench predict: whole-chromosome calls "
+                             f"{record['whole_chromosome']}, want exactly 21:gain")
+    if code != 0 and (code != 1 or "F" not in misaligned):
+        raise AssertionError(f"bench predict exited {code} on a reference "
+                             "whose F pass is aligned with the A pass")
+
+
+def gonosomal_misalignment(ref, samples, device, binsize):
+    """The gonosomal passes of ``ref`` whose autosome rows differ from the
+    autosomal pass's.  For each: its first target row beside the A pass's
+    row count, the autosomal bins the A pass keeps and it lacks, and those
+    its own PCA-distance filter dropped (the passes are built A, F, M on
+    one shared mask, so M also lacks what F dropped).  Where its own
+    filter dropped autosomal bins, that filter runs again on the card
+    from ``samples`` (the cohort the reference was built from), in
+    float32, the build's type, and in float64: the cutoff, the bins
+    dropped, and each dropped bin's distance over the cutoff.  The pass's
+    mask before its filter is taken as its stored mask with those bins put
+    back; ``premise_holds`` says whether the float32 run dropped exactly
+    them again.  Returns {pass: record}, empty when every pass is
+    aligned."""
+    import numpy as np
+    import torch
+
+    from wisecondorx_tpu_torch.models.reference import (
+        NewrefConfig,
+        _normalize_and_pca,
+        _pca_distance,
+        cohort_matrix,
+    )
+
+    npz = np.load(ref)
+    a_mask = npz["mask"]
+    n_aut = int(npz["masked_bins_per_chr_cum"][21])
+    out, prev, matrix = {}, a_mask, None
+    cfg = NewrefConfig(binsize=binsize, refsize=REFSIZE)
+    for g in ("F", "M"):
+        if f"mask.{g}" not in npz.files:
+            continue
+        g_mask = npz[f"mask.{g}"]
+        g_aut = g_mask[: len(a_mask)]
+        missing = np.nonzero(a_mask & ~g_aut)[0]
+        own = np.nonzero(prev & ~g_aut)[0]
+        prev = g_aut
+        ct = int(npz[f"masked_bins_per_chr_cum.{g}"][21])
+        if ct == n_aut:
+            continue
+        rec = dict(first_target_row=ct, a_pass_rows=n_aut,
+                   missing_autosomal_bins=missing[:20].tolist(),
+                   n_missing=len(missing), dropped_by_own_filter=own[:20].tolist())
+        if len(own):
+            if matrix is None:
+                matrix, _, genders = cohort_matrix(
+                    [(s, binsize) for s in samples], cfg)[:3]
+            before = g_mask.copy()
+            before[own] = True
+            rows = np.nonzero(before)[0]
+            cols = np.nonzero(np.asarray(genders) == g)[0]
+            rec["refilter"] = {}
+            for name, dtype in (("float32", torch.float32),
+                                ("float64", torch.float64)):
+                sub = torch.as_tensor(matrix[: len(g_mask)][:, cols],
+                                      dtype=dtype, device=device)
+                dist = _pca_distance(_normalize_and_pca(sub, before, cfg)[0])
+                dist = dist.cpu().numpy().astype(np.float64)
+                del sub
+                mad = np.median(np.abs(dist - np.median(dist)))
+                cutoff = max(np.median(dist) + 10 * mad, 5.0)
+                bad = rows[dist > cutoff]
+                over = dict(zip(rows.tolist(), (dist / cutoff).tolist()))
+                rec["refilter"][name] = dict(
+                    cutoff=cutoff, n_dropped=len(bad), dropped=bad[:20].tolist(),
+                    same_as_stored=set(bad.tolist()) == set(own.tolist()),
+                    over_cutoff={int(b): over[int(b)] for b in own[:20]})
+            rec["premise_holds"] = rec["refilter"]["float32"]["same_as_stored"]
+        out[g] = rec
+    return out
+
+
 def phase_trace(files, ref, t21, plate, device):
     """Per-stage device traces (``WCX_PROFILE_DIR``) of the main cohort's
     newref, ``predict --bed --plot`` and ``predict-batch --bed``, and of
@@ -1768,6 +2006,9 @@ def phase_trace(files, ref, t21, plate, device):
          npz_bytes=os.path.getsize(ref_u),
          peak_memory_bytes=torch.cuda.max_memory_allocated(),
          stages={k: round(v, 3) for k, v in stage_times().items()})
+    bench_t21 = os.path.join(bench_root, "case_t21.npz")
+    save_sample(bench_t21, sim.sample("F", cnvs=[_trisomy(sim, 21)]), BENCH_BINSIZE)
+    bench_predict(ref_u, bench_t21, os.path.join(bench_root, "case_t21"), samples)
     ref_b = os.path.join(bench_root, "reference.npz")
     (traces["bench", "newref"], bench_newref_s), launches["bench"], _ = launches_of(
         "traced bench newref",
@@ -1837,7 +2078,7 @@ def main():
     knn_cuda.reset_launch_counts()
     cbs.reset_round_counts()
     ref = phase_newref(files)
-    phase_predict(ref, t21, "case_t21", want_gain_chr="21")
+    phase_predict(ref, t21, "case_t21", want_gain_chr="21", check_dispatch=True)
     phase_predict(ref, euploid, "case_euploid", want_gain_chr=None)
     launches = dict(knn_cuda.LAUNCHES)
     rounds = dict(cbs.ROUNDS)

@@ -173,6 +173,40 @@ def test_pipelined_newref_equals_the_checkpointed_one(dev, tmp_path, monkeypatch
             assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), f"{g}/{key}"
 
 
+@pytest.mark.parametrize("maskrepeats", [5, 3, 0])
+def test_predict_tables_and_dispatch_on_the_card(dev, tmp_path, maskrepeats):
+    """The streamed loader's tables built on the card (stored indexes and
+    the cutoff bits or distances uploaded, translated there) equal the
+    CPU's and the plain numpy translation; both passes dispatch with
+    syncs made errors and equal the sequential passes."""
+    from synthetic import CohortSim
+    from wisecondorx_tpu_torch.io.npz import _savez_fast, flatten_reference
+    from wisecondorx_tpu_torch.models.ref_loader import ReferenceLoader
+    from wisecondorx_tpu_torch.models.reference import NewrefConfig, build_reference
+
+    cpu = torch.device("cpu")
+    sim = CohortSim(binsize=1e5, genome_scale=0.05, seed=4)
+    samples, _ = sim.cohort(12, 12)
+    passes, meta = build_reference([(s, 100000) for s in samples],
+                                   NewrefConfig(binsize=100000, refsize=50), cpu)
+    ref = str(tmp_path / "ref.npz")
+    _savez_fast(ref, flatten_reference(passes, is_nipt=meta["is_nipt"],
+                                       trained_cutoff=meta["trained_cutoff"]))
+    for gender in ("F", "M"):
+        on_card = chip_smoke.tables_vs_plain(ref, gender, dev, maskrepeats)
+        assert all(t["equal"] for t in on_card.values())
+        with ReferenceLoader(ref, dev) as card, ReferenceLoader(ref, cpu) as host:
+            for loader in (card, host):
+                loader.start([gender], maskrepeats)
+            for g in ("A", gender):
+                assert torch.equal(card.tables(g).sentinel_idx.cpu(),
+                                   host.tables(g).sentinel_idx)
+    case = str(tmp_path / "case.npz")
+    chip_smoke.save_sample(case, sim.sample("F", cnvs=[(21, 0, 20, 3.0)]), 100000)
+    record = chip_smoke.dispatch_without_sync(ref, case, dev, 100000)
+    assert record["equal_to_sequential"] and record["passes"] == ["A", "F"]
+
+
 def test_scene_raster_on_the_card_equals_the_cpu_raster(dev):
     """A figure's raster is integer work on host-computed geometry, so the
     card's equals the CPU's bit for bit."""

@@ -19,6 +19,7 @@ defaults to TF32, so both are set explicitly.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -62,3 +63,17 @@ def resolve_devices(name: str | torch.device) -> list[torch.device]:
 def work_dtype(device: torch.device) -> torch.dtype:
     """float64 on the CPU (parity runs), float32 on CUDA."""
     return torch.float32 if torch.device(device).type == "cuda" else torch.float64
+
+
+def to_device(array, device: torch.device,
+              dtype: torch.dtype | None = None) -> torch.Tensor:
+    """A host array on ``device``, converted to ``dtype`` on the host
+    first.  A CUDA copy is staged in pinned memory and issued on the
+    current stream without waiting; on the CPU the array's memory is
+    shared where no conversion is needed."""
+    t = torch.from_numpy(np.ascontiguousarray(array))
+    if dtype is not None:
+        t = t.to(dtype)
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t

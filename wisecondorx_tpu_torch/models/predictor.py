@@ -17,6 +17,7 @@ import warnings
 import numpy as np
 import torch
 
+from wisecondorx_tpu_torch.device import to_device
 from wisecondorx_tpu_torch.errors import UserInputError
 from wisecondorx_tpu_torch.genome import GenomeLayout, MaskedLayout
 from wisecondorx_tpu_torch.io.npz import gender_correct, scale_sample
@@ -80,24 +81,40 @@ class BinResults:
     masked_layout: MaskedLayout
 
 
-def _pass_normalize(sample, ref_pass, tables: PassTables):
-    """One normalization pass on the tables' device; host results."""
+def _pass_normalize_dispatch(sample, ref_pass, tables: PassTables):
+    """Queue one normalization pass on the tables' device and return its
+    results unfetched, so that the autosomal and the gonosomal pass run
+    back to back on the device.  Nothing here waits for the device: the
+    sample goes up through pinned memory, and the current stream waits
+    for the tables' own stream on the device."""
     dev = tables.sentinel_idx.device
     masked = norm_ops.coverage_normalize_and_mask(
         sample, np.asarray(ref_pass["bins_per_chr"]),
         np.asarray(ref_pass["mask"], dtype=bool),
     )
+    tables.wait()
     projected = pca_ops.project_sample(
-        torch.as_tensor(masked, dtype=tables.mean.dtype, device=dev),
+        to_device(masked, dev, tables.mean.dtype),
         tables.components, tables.mean,
     )
-    z, r, sizes, m_lr, m_z = norm_ops.normalize_repeat(
-        projected, tables.sentinel_idx, ct=tables.ct
-    )
+    return norm_ops.normalize_repeat(projected, tables.sentinel_idx,
+                                     ct=tables.ct)
+
+
+def _pass_fetch(dev_results, tables: PassTables):
+    """Host results of a dispatched pass: (z, r, weights, ref_sizes, m_lr,
+    m_z)."""
+    z, r, sizes, m_lr, m_z = dev_results
     return (
         z.cpu().numpy(), r.cpu().numpy(), tables.weights,
         sizes.cpu().numpy().astype(np.float64), float(m_lr), float(m_z),
     )
+
+
+def _pass_normalize(sample, ref_pass, tables: PassTables):
+    """One normalization pass on the tables' device; host results."""
+    return _pass_fetch(_pass_normalize_dispatch(sample, ref_pass, tables),
+                       tables)
 
 
 def prepare_sample(sample, sample_binsize, ref_passes, ref_meta, cfg):
@@ -172,14 +189,14 @@ def predict_bins(sample: dict, sample_binsize: int,
         null_tables = (loader.null_ratios("A"), loader.null_ratios(ref_gender))
     else:
         tables_a, tables_g = ref.tables["A"], ref.tables[ref_gender]
+    # Both passes are queued before either is fetched: the device runs
+    # them back to back while the host waits once.
     with stage_timer("predict.normalize_autosomes"):
-        z_a, r_a, w_a, sizes_a, m_lr, m_z = _pass_normalize(
-            sample, a_pass, tables_a
-        )
+        dev_a = _pass_normalize_dispatch(sample, a_pass, tables_a)
+        dev_g = _pass_normalize_dispatch(sample, g_pass, tables_g)
+        z_a, r_a, w_a, sizes_a, m_lr, m_z = _pass_fetch(dev_a, tables_a)
     with stage_timer("predict.normalize_gonosomes"):
-        z_g, r_g, w_g, sizes_g, _, _ = _pass_normalize(
-            sample, g_pass, tables_g
-        )
+        z_g, r_g, w_g, sizes_g, _, _ = _pass_fetch(dev_g, tables_g)
     return assemble_results(
         (z_a, r_a, w_a, sizes_a, m_lr, m_z),
         (z_g, r_g, w_g, sizes_g),

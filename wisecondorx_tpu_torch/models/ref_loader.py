@@ -21,12 +21,18 @@ Two ways in:
 Both build each pass's tables with :func:`build_pass_tables`, which holds
 the cache and cutoff policy.
 
-The translation runs in numpy (the JAX package's fallback path; its
-native ``tablekit`` is not used).
+The translation (``native/tablekit.cpp`` in the JAX package) runs on the
+tables' device: the stored int32 indexes and the cutoff's source (the
+packed ``wcx_distok`` bits or the distances) are uploaded as they are
+stored and translated there by :func:`translate_on_device`, on a CUDA
+stream of the loading thread's own.  The numpy :func:`translate_and_mask`
+and :func:`translate_with_okbits` stay as its plain version
+(:func:`plain_sentinel`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 from concurrent.futures import Future, ThreadPoolExecutor
@@ -40,9 +46,14 @@ from wisecondorx_tpu_torch.io.npz import (
     load_reference_npz,
     load_reference_small,
 )
-from wisecondorx_tpu_torch.device import work_dtype
+from wisecondorx_tpu_torch.device import to_device, work_dtype
 from wisecondorx_tpu_torch.ops import normalize as norm_ops
 from wisecondorx_tpu_torch.utils.log import stage_timer
+
+
+#: Bytes of one int64 ``[chunk, k]`` temporary of the translation (the
+#: JAX package's 64 MB upload chunk).
+TRANSLATE_CHUNK_BYTES = 64 << 20
 
 
 @dataclasses.dataclass
@@ -50,7 +61,15 @@ class PassTables:
     """One pass's predict tables: ``sentinel_idx`` int64 [target_rows, k]
     and the PCA ``components`` [k, n_masked] / ``mean`` [n_masked] on the
     device; host float64 ``weights`` of the target rows; the pass's masked
-    layout ``ml``; ``ct`` its first target row."""
+    layout ``ml``; ``ct`` its first target row.
+
+    ``sentinel_idx`` is int64 (the JAX package's table is int32, with the
+    same values): it is the index of ``normalize_repeat``'s gather, which
+    takes int64 without a cast in every round.  ``ready``: on a CUDA
+    device, the event recorded after the tables' upload and translation
+    on the stream that built them (see :meth:`wait`); ``upload_bytes``:
+    the bytes of the host arrays they were built from (copied to a CUDA
+    device, shared on the CPU)."""
 
     sentinel_idx: torch.Tensor
     components: torch.Tensor
@@ -58,6 +77,19 @@ class PassTables:
     weights: np.ndarray
     ml: MaskedLayout
     ct: int
+    ready: torch.cuda.Event | None = None
+    upload_bytes: int = 0
+
+    def wait(self) -> None:
+        """Make the current stream of the tables' device wait for their
+        upload and translation, and mark the tensors as used there, so
+        the allocator keeps them until its work on them is done."""
+        if self.ready is None:
+            return
+        stream = torch.cuda.current_stream(self.sentinel_idx.device)
+        stream.wait_event(self.ready)
+        for t in (self.sentinel_idx, self.components, self.mean):
+            t.record_stream(stream)
 
 
 @dataclasses.dataclass
@@ -96,13 +128,99 @@ def pass_ct(ref_pass: dict, gender: str) -> int:
     return int(np.asarray(ref_pass["masked_bins_per_chr_cum"])[21])
 
 
-def _upload_sentinel(sent: np.ndarray, device: torch.device) -> torch.Tensor:
-    """The int64 sentinel table on ``device``; a CUDA copy is staged in
-    pinned memory and issued without waiting."""
-    table = torch.from_numpy(np.ascontiguousarray(sent, dtype=np.int64))
-    if device.type == "cuda":
-        return table.pin_memory().to(device, non_blocking=True)
-    return table.to(device)
+def translate_chunk_rows(k: int) -> int:
+    """Rows per chunk of :func:`translate_on_device` (64 MB of int64)."""
+    return max(1, TRANSLATE_CHUNK_BYTES // max(k * 8, 1))
+
+
+def translate_on_device(idx: torch.Tensor, row_starts: torch.Tensor,
+                        row_sizes: torch.Tensor, keep=None,
+                        chunk_rows: int | None = None) -> torch.Tensor:
+    """``native/tablekit.cpp``'s translation as torch ops on ``idx``'s
+    device: for target row ``r`` and neighbour ``j``
+
+        out[r, j] = keep(r, j) ? idx[r, j] + (idx[r, j] >= row_starts[r]
+                                              ? row_sizes[r] : 0) : -1
+
+    (``MaskedLayout.neighbour_to_global`` with the cutoff folded in).
+    ``idx`` int32 or int64 [rows, k]; ``row_starts`` / ``row_sizes`` [rows]
+    the masked start and size of each target row's chromosome; ``keep`` a
+    function ``(a, b) -> bool [b - a, k]`` of rows ``a:b`` (see
+    :func:`keep_from_bits`, :func:`keep_below`), None to keep every
+    neighbour.  Runs over chunks of ``chunk_rows`` rows (default
+    :func:`translate_chunk_rows`), so the temporaries stay bounded.
+    Returns int64 [rows, k]."""
+    rows, k = idx.shape
+    chunk = chunk_rows or translate_chunk_rows(k)
+    out = torch.empty((rows, k), dtype=torch.int64, device=idx.device)
+    for a in range(0, rows, chunk):
+        b = min(a + chunk, rows)
+        part = out[a:b]
+        part.copy_(idx[a:b])
+        part += torch.where(part >= row_starts[a:b, None],
+                            row_sizes[a:b, None], 0)
+        if keep is not None:
+            part.masked_fill_(~keep(a, b), -1)
+    return out
+
+
+def keep_from_bits(ok_packed: torch.Tensor, k: int):
+    """The ``keep`` of :func:`translate_on_device` read from the
+    ``wcx_distok`` bits: uint8 [rows, ceil(k / 8)] in numpy's ``packbits``
+    layout (big-endian within each byte; bits past ``k`` ignored)."""
+    shifts = torch.arange(7, -1, -1, dtype=torch.uint8, device=ok_packed.device)
+
+    def keep(a, b):
+        bits = (ok_packed[a:b, :, None] >> shifts) & 1
+        return bits.reshape(b - a, -1)[:, :k].bool()
+
+    return keep
+
+
+def keep_below(dist: torch.Tensor, cutoff: float):
+    """The ``keep`` of :func:`translate_on_device` for ``dist < cutoff``,
+    compared in float64 as the JAX package compares it: a float32 compare
+    would flip a distance that rounds to the cutoff.  NaN keeps nothing."""
+    return lambda a, b: dist[a:b].double() < cutoff
+
+
+def _cutoff_source(ref_pass: dict, a_pass: dict, cutoff: float, ct: int,
+                   dist: np.ndarray | None):
+    """Where the cutoff decision of a pass's target rows comes from:
+    ("all", None) at an infinite cutoff, ("bits", packed wcx_distok rows)
+    where :func:`_okbits_serve` says so, else ("dist", distances)."""
+    if np.isinf(cutoff):
+        return "all", None
+    if _okbits_serve(ref_pass, a_pass, cutoff):
+        return "bits", np.asarray(ref_pass["wcx_distok"])[ct:]
+    return "dist", dist
+
+
+def plain_sentinel(ref_pass: dict, gender: str, cutoff: float, a_pass: dict,
+                   idx: np.ndarray | None = None,
+                   dist: np.ndarray | None = None) -> np.ndarray:
+    """The plain (host numpy) version of the sentinel table that
+    :func:`build_pass_tables` builds on the device, from the same inputs:
+    int32, the JAX package's numpy route."""
+    ct = pass_ct(ref_pass, gender)
+    ml = _masked_layout(ref_pass)
+    if idx is None:
+        idx = np.asarray(ref_pass["indexes"])[ct:]
+    if dist is None and needs_distances(ref_pass, a_pass, cutoff):
+        dist = np.asarray(ref_pass["distances"])[ct:]
+    kind, src = _cutoff_source(ref_pass, a_pass, cutoff, ct, dist)
+    if kind == "all":
+        return ml.neighbour_to_global(idx, row_start=ct)
+    if kind == "bits":
+        return translate_with_okbits(idx, src, ml, ct)
+    return translate_and_mask(idx, src, ml, ct, cutoff)
+
+
+def _masked_layout(ref_pass: dict) -> MaskedLayout:
+    return MaskedLayout(
+        GenomeLayout(np.asarray(ref_pass["bins_per_chr"])),
+        np.asarray(ref_pass["mask"], dtype=bool),
+    )
 
 
 def _okbits_serve(ref_pass: dict, a_pass: dict, cutoff: float) -> bool:
@@ -134,39 +252,68 @@ def build_pass_tables(ref_pass: dict, gender: str, cutoff: float,
     pass's indexes and distances from its first target row on, where the
     caller has read them (the streamed loader reads only those rows); by
     default they are sliced from ``ref_pass``, and the distances only where
-    :func:`needs_distances` says so."""
+    :func:`needs_distances` says so.
+
+    The stored indexes and the cutoff's source (bits or distances) are
+    uploaded as stored and translated on ``device``
+    (:func:`translate_on_device`).  On a CUDA device the upload (through
+    pinned memory) and the translation run on a stream of their own; the
+    tables' ``ready`` event marks their end, and each stage waits for its
+    own work, so its seconds are the device's."""
     ct = pass_ct(ref_pass, gender)
-    ml = MaskedLayout(
-        GenomeLayout(np.asarray(ref_pass["bins_per_chr"])),
-        np.asarray(ref_pass["mask"], dtype=bool),
-    )
+    ml = _masked_layout(ref_pass)
     if idx is None:
         idx = np.asarray(ref_pass["indexes"])[ct:]
     if dist is None and needs_distances(ref_pass, a_pass, cutoff):
         dist = np.asarray(ref_pass["distances"])[ct:]
-    with stage_timer(f"predict.load.translate_{gender}"):
-        if np.isinf(cutoff):
-            sent = ml.neighbour_to_global(idx, row_start=ct)
-        elif _okbits_serve(ref_pass, a_pass, cutoff):
-            sent = translate_with_okbits(
-                idx, np.asarray(ref_pass["wcx_distok"])[ct:], ml, ct
-            )
-        else:
-            sent = translate_and_mask(idx, dist, ml, ct, cutoff)
     if "wcx_weights" in ref_pass:
         weights = np.asarray(ref_pass["wcx_weights"], np.float64)[ct:]
     else:
-        weights = norm_ops.get_weights(dist)
+        with stage_timer(f"predict.load.weights_{gender}"):
+            weights = norm_ops.get_weights(dist)
+    kind, src = _cutoff_source(ref_pass, a_pass, cutoff, ct, dist)
+    chr_rows = ml.chr_of_masked_bin[ct : ct + len(idx)]
+    host = {
+        "idx": np.asarray(idx),
+        "starts": np.asarray(ml.masked_chr_starts, np.int64)[chr_rows],
+        "sizes": np.asarray(ml.masked_bins_per_chr, np.int64)[chr_rows],
+    }
+    if src is not None:
+        host[kind] = np.asarray(src)
     dtype = work_dtype(device)
-    with stage_timer(f"predict.load.upload_{gender}"):
-        return PassTables(
-            sentinel_idx=_upload_sentinel(sent, device),
-            components=torch.as_tensor(np.asarray(ref_pass["pca_components"]),
-                                       dtype=dtype, device=device),
-            mean=torch.as_tensor(np.asarray(ref_pass["pca_mean"]), dtype=dtype,
-                                 device=device),
-            weights=weights, ml=ml, ct=ct,
-        )
+    stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+    with (torch.cuda.stream(stream) if stream is not None
+          else contextlib.nullcontext()):
+        with stage_timer(f"predict.load.upload_{gender}"):
+            dev = {key: to_device(a, device) for key, a in host.items()}
+            components = to_device(ref_pass["pca_components"], device, dtype)
+            mean = to_device(ref_pass["pca_mean"], device, dtype)
+            _wait(stream)
+        with stage_timer(f"predict.load.translate_{gender}"):
+            keep = None
+            if kind == "bits":
+                keep = keep_from_bits(dev["bits"], idx.shape[1])
+            elif kind == "dist":
+                keep = keep_below(dev["dist"], cutoff)
+            sent = translate_on_device(dev["idx"], dev["starts"],
+                                       dev["sizes"], keep)
+            ready = _wait(stream)
+    return PassTables(
+        sentinel_idx=sent, components=components, mean=mean,
+        weights=weights, ml=ml, ct=ct, ready=ready,
+        upload_bytes=sum(t.nbytes for t in (*dev.values(), components, mean)),
+    )
+
+
+def _wait(stream) -> torch.cuda.Event | None:
+    """Record an event on ``stream`` and wait for it on the host; None
+    without a stream (the CPU)."""
+    if stream is None:
+        return None
+    event = torch.cuda.Event()
+    event.record(stream)
+    event.synchronize()
+    return event
 
 
 def reference_cutoff(a_pass: dict, maskrepeats: int) -> float:
@@ -213,7 +360,7 @@ class ReferenceLoader:
 
         with ReferenceLoader(path, device) as loader:  # small members
             ...                                    # decide ref_gender
-            loader.start([ref_gender], maskrepeats)  # read, translate, upload
+            loader.start([ref_gender], maskrepeats)  # read, upload, translate
             tables = loader.tables("A")            # waits until ready
             nulls = loader.null_ratios("A")
 
@@ -266,9 +413,8 @@ class ReferenceLoader:
             idx=self._futs[("idx", gender)].result(),
             dist=None if dist is None else dist.result(),
         )
-        rows, k = tables.sentinel_idx.shape
-        logging.info("streamed %s sentinel indexes (%.0f MB) to %s", gender,
-                     rows * k * 8 / 2**20, self.device)
+        logging.info("streamed pass %s's tables (%.1f MB) to %s", gender,
+                     tables.upload_bytes / 2**20, self.device)
         return tables
 
     def start(self, ref_genders, maskrepeats: int) -> None:

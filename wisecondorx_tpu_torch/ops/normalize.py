@@ -103,9 +103,10 @@ def normalize_repeat(test_data: torch.Tensor, sentinel_idx: torch.Tensor,
     over target bins, for one sample or a batch of samples.
 
     ``test_data`` [n] or [c, n]: masked, coverage-normalized, PCA-projected
-    sample(s); ``sentinel_idx`` int64 [n - ct, k]: global neighbour indexes
-    of the target rows with the distance cutoff folded in as -1, shared by
-    the batch.  Bins whose |z| crossed the threshold in an earlier round
+    sample(s); ``sentinel_idx`` [n - ct, k]: global neighbour indexes of
+    the target rows with the distance cutoff folded in as -1, shared by
+    the batch; int64 (``PassTables``'s type), which the gather takes
+    without a cast in any round.  Bins whose |z| crossed the threshold in an earlier round
     stop serving as neighbours (they become -1 in ``test_copy``); the
     targets' own values always come from ``test_data``.
 

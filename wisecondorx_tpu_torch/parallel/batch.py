@@ -37,6 +37,7 @@ def _run_pass_batched(samples, ref_pass, tables: PassTables, chunk: int):
     bins_per_chr = np.asarray(ref_pass["bins_per_chr"])
     mask = np.asarray(ref_pass["mask"], dtype=bool)
     dev = tables.sentinel_idx.device
+    tables.wait()
     out = []
     for s0 in range(0, len(samples), chunk):
         block = np.stack([
