@@ -30,8 +30,20 @@ Phases, each printing one JSON line on stdout (logs go to stderr):
    ``torch.cuda.set_sync_debug_mode("error")`` (any host sync before the
    first fetch fails) and equal to the sequential passes; then
    ``cbs_rounds``: the CBS rounds of both predicts, which must all be
-   device-stream rounds;
-6. predict_batch -- ``predict-batch --bed`` on a plate of 24 samples
+   device-stream rounds; then ``warmup``: the ``warmup.*`` stages of both
+   calls (newref's must have loaded the kernel library, predict's
+   translated its small table, and each must have been joined);
+6. cold -- what a fresh process pays (:func:`phase_cold`): the
+   interpreter alone, ``import torch`` (walls and ``-X importtime``'s
+   largest modules), and a probe process that times the imports,
+   ``resolve_devices``, the context, the kernel library (hash, build
+   check, load), the first and second call of each kernel family of the
+   path and the first page-locked blocks, and its own exit; then one
+   ``newref`` and one ``predict --bed`` of the trisomy-21 sample through
+   the CLI in fresh processes, beside the in-process walls and stages of
+   phases 4-5; the fresh reference must equal phase 4's and the fresh
+   tables phase 5's byte for byte;
+7. predict_batch -- ``predict-batch --bed`` on a plate of 24 samples
    (trisomies 21, 18 and 13, a 10 Mb deletion on chr5, the euploid male,
    19 euploid females) plus one corrupt npz: the exit code must be 3, every
    planted event called, no euploid sample called whole-chromosome, any
@@ -39,12 +51,12 @@ Phases, each printing one JSON line on stdout (logs go to stderr):
    single predict and by the reference path (CPU float64 normalization,
    host permutation stream), and the trisomy-21 sample's segments and
    calls equal to its single predict's;
-7. cbs_stream -- on the trisomy-21 sample's CBS jobs: one round's Threefry
+8. cbs_stream -- on the trisomy-21 sample's CBS jobs: one round's Threefry
    keys equal on CUDA and the CPU, the first-level decisions of the device
    stream equal on both, the sample's CBS time with the device and the host
    permutation stream on the card, and one whole device-stream round
    (``perm_round_device``) timed beside its bound (:func:`_cbs_round_bound`);
-8. plots -- ``predict --bed --plot`` of the trisomy-21 sample through the
+9. plots -- ``predict --bed --plot`` of the trisomy-21 sample through the
    CLI, timed with its scene, raster and encode stages; every figure
    decoded with ``read_png`` at its pixel size; gain-coloured pixels across
    chr21's gain dots on the genome-wide figure, none in chr1 and none
@@ -53,7 +65,7 @@ Phases, each printing one JSON line on stdout (logs go to stderr):
    --plot`` on the first four plate samples (every table and figure of
    each); ``newref --plotyfrac`` on the cohort (exit 0, a 1600 x 600 PNG,
    no reference);
-9. kernels -- at the A-pass shape of the reference newref wrote (its mask
+10. kernels -- at the A-pass shape of the reference newref wrote (its mask
    and layout; rows = masked bins, 200 samples): K1 and K2 against their
    plain PyTorch versions on integer-valued inputs, where every distance is
    exact (tolerance 0), and K2 bit for bit on its edge fixtures
@@ -65,28 +77,28 @@ Phases, each printing one JSON line on stdout (logs go to stderr):
    A-pass neighbours against the exact float64 search of the same
    PCA-corrected rows (neighbour-set agreement, mean >= 99.9 %, min >= 299
    of 300; median distance relative error <= 1e-6);
-10. checkpoint -- newref with ``--checkpoint-dir``, stopped in process right
+11. checkpoint -- newref with ``--checkpoint-dir``, stopped in process right
    after it saves its first ``knn_A_*`` artifact (``NewrefCheckpoint.save``
    patched), then run again: it resumes, writes a reference equal in every
    member to the newref phase's (the serial build equals the pipelined
    one), removes the directory, and launches K1 fewer times than the full
    build;
-11. multidevice -- ``knn_search_multidevice`` on the A pass and
+12. multidevice -- ``knn_search_multidevice`` on the A pass and
    ``predict_batch`` on the plate with the card listed twice (two parts,
    two host threads): equal bit for bit to one device;
-12. multiproc -- newref and predict-batch as two worker processes on the
+13. multiproc -- newref and predict-batch as two worker processes on the
    one card, each with torchrun's environment on 127.0.0.1 and a timeout:
    process 0's reference (a serial build) equals the newref phase's
    (pipelined) in every member, both
    processes launched both kernels, and the two plate shards together
    write every sample's outputs byte-equal to the predict_batch phase's;
-13. wide -- newref through the CLI on 720 controls (360 F + 360 M) at 50
+14. wide -- newref through the CLI on 720 controls (360 F + 360 M) at 50
    kb, genome_scale 0.25, so the A pass's s_pad (736) is above the 672 at
-   which K1 streams its rows; its stored neighbours meet the bar of phase 9
+   which K1 streams its rows; its stored neighbours meet the bar of phase 10
    against the exact float64 search; and K1 against its plain version
    (exact) at the A-pass row-chunk shape with 1,000 and 4,096 samples, each
    timed beside its bound;
-14. trace -- the main cohort's newref, ``predict --bed --plot`` of the
+15. trace -- the main cohort's newref, ``predict --bed --plot`` of the
    trisomy-21 sample and ``predict-batch --bed`` of the plate, then newref
    on bench.py's headline shape (15 kb bins over the whole genome, 250 F +
    250 M controls, seed 2), first untraced (its wall, stages, peak device
@@ -112,10 +124,11 @@ Phases, each printing one JSON line on stdout (logs go to stderr):
    library yardsticks (``torch.mm`` of K1's product, ``torch.topk`` of K2's
    pool), K1's bound over the whole run, and the stored A-pass neighbours
    of the first BENCH_CHECK_ROWS rows against the exact float64 search
-   (the bar of phase 9).
+   (the bar of phase 10).
 
 The kernels' launch counters are set to 0 just before newref and read just
-after predict: both kernels must have run on that path (predict-batch runs
+after predict (the warm-ups launch no KNN kernel): both kernels
+must have run on that path (predict-batch runs
 no KNN kernel, nor do the plots).  Each later path that searches (the resumed newref, the
 two-device search, each worker's newref, the wide newref, the bench-shape
 newref) is read the same way and must have launched both kernels too.
@@ -347,14 +360,13 @@ def phase_newref(files):
     cli.main(["newref", *files, ref, "--binsize", str(BINSIZE),
               "--refsize", str(REFSIZE), "--device", CLI_DEVICE])
     wall = time.perf_counter() - t0
-    stages = stage_times()
+    stages = {k: round(v, 3) for k, v in stage_times().items()}
     emit("newref", seconds=round(wall, 3),
          pipelined="newref.pass_A.prep" in stages,
-         peak_memory_bytes=torch.cuda.max_memory_allocated(),
-         stages={k: round(v, 3) for k, v in stages.items()})
+         peak_memory_bytes=torch.cuda.max_memory_allocated(), stages=stages)
     if "newref.pass_A.prep" not in stages:
         raise AssertionError("the one-process newref did not pipeline its passes")
-    return ref
+    return ref, {"seconds": wall, "stages": stages}
 
 
 def phase_predict(ref, case, tag, want_gain_chr, check_dispatch=False):
@@ -362,7 +374,7 @@ def phase_predict(ref, case, tag, want_gain_chr, check_dispatch=False):
     tables built again on the card and held against the plain numpy
     translation (:func:`tables_vs_plain`) and, with ``check_dispatch``,
     both passes dispatched with syncs made errors
-    (:func:`dispatch_without_sync`)."""
+    (:func:`dispatch_without_sync`).  Returns its wall and stages."""
     import torch
 
     from wisecondorx_tpu_torch import cli
@@ -388,6 +400,7 @@ def phase_predict(ref, case, tag, want_gain_chr, check_dispatch=False):
         raise AssertionError(f"{tag}: no chr{want_gain_chr} gain in {rows}")
     if set(whole) - planted:
         raise AssertionError(f"{tag}: whole-chromosome calls {whole}")
+    return {"seconds": wall, "stages": {k: round(v, 3) for k, v in stages.items()}}
 
 
 def tables_vs_plain(ref, gender, device, maskrepeats=5):
@@ -502,6 +515,210 @@ def read_calls(outid, ref, binsize=BINSIZE):
         if span >= 0.9 * bins_per_chr[names[r[0]]]:
             whole.append(f"{r[0]}:{r[-1]}")
     return gender, rows, whole
+
+
+COLD_PROBE = r"""
+import json, os, sys, time
+
+t_start = time.perf_counter()
+import torch
+
+t_torch = time.perf_counter()
+import wisecondorx_tpu_torch.cli
+
+t_cli = time.perf_counter()
+from wisecondorx_tpu_torch.device import resolve_devices
+
+devices = resolve_devices("cuda")
+t_resolve = time.perf_counter()
+dev = devices[0]
+out = {"spawn_s": t_start - float(sys.argv[1]),
+       "import_torch_s": t_torch - t_start, "import_cli_s": t_cli - t_torch,
+       "resolve_devices_s": t_resolve - t_cli,
+       "cuda_module_loading": os.environ.get("CUDA_MODULE_LOADING")}
+
+
+def timed(name, fn, runs=("first", "second")):
+    for run in runs:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize(dev)
+        out.setdefault(name, {})[run] = time.perf_counter() - t0
+
+
+timed("context", lambda: (torch.zeros(8, device=dev) + 1).cpu())
+import numpy as np
+from wisecondorx_tpu_torch.ops import _build, knn_cuda
+from wisecondorx_tpu_torch.ops.common import median
+from wisecondorx_tpu_torch.models import ref_loader
+from wisecondorx_tpu_torch.ops import cbs
+
+timed("library_hash", _build.library_path, ("first",))
+timed("library_build_check", _build.build, ("first",))
+timed("library_dlopen", _build.load, ("first",))
+box = {}
+
+
+def filler(n, s):
+    # [n, s] float64 values in [1, 2) from a hash of their positions.
+    i = np.arange(n * s, dtype=np.uint64).reshape(n, s)
+    h = (i * np.uint64(2654435761)) ^ (i >> np.uint64(7))
+    return 1.0 + (h & np.uint64(0xFFFFFFFF)) % np.uint64(65521) / 65521.0
+
+
+def segment():
+    # CBS of one 256-bin step profile: Threefry keys, permutation rounds,
+    # the split's exact location.
+    x = np.where(np.arange(256) < 128, 1.0, 2.0) + 0.01 * np.sin(np.arange(256))
+    rows = cbs.CBSConfig.perm_batch
+    cbs._segment_jobs([(x, np.ones(256))], cbs.CBSConfig(nperm=rows,
+                                                         perm_batch=rows), dev)
+
+
+def inputs():
+    r, n, s = 64, 2 * knn_cuda.LANES, 224
+    cand = torch.as_tensor(filler(n, s) - 1.5, dtype=torch.float32,
+                           device=dev)
+    box["k1"] = (cand[:r].contiguous(), (cand[:r] ** 2).sum(1),
+                 torch.zeros(r, dtype=torch.int32, device=dev),
+                 torch.zeros(r, dtype=torch.int32, device=dev),
+                 torch.full((r,), 64, dtype=torch.int32, device=dev),
+                 cand, (cand ** 2).sum(1),
+                 (torch.arange(n, device=dev) // 64).to(torch.int32), n, 1e30)
+    box["x"] = torch.as_tensor(filler(4096, 200), dtype=torch.float32,
+                               device=dev)
+    box["idx"] = (torch.arange(4096, device=dev) * 7) % 4096
+    box["t32"] = ((torch.arange(256 * 300, device=dev) * 7919) % 253).to(
+        torch.int32).reshape(256, 300)
+
+
+timed("inputs", inputs, ("first",))
+timed("k1", lambda: box.update(pool=knn_cuda.bucket_scan(*box["k1"])))
+timed("k2", lambda: knn_cuda.extract_topk(*box["pool"], 300))
+timed("mm", lambda: box["x"].T @ box["x"])
+timed("sort_median", lambda: median(box["x"], dim=0))
+timed("gather", lambda: box["x"][box["idx"]][:, box["idx"][:100] % 200])
+starts = torch.zeros(256, dtype=torch.int64, device=dev)
+sizes = torch.full((256,), 3, dtype=torch.int64, device=dev)
+bits = torch.full((256, 38), 0xA5, dtype=torch.uint8, device=dev)
+timed("translate", lambda: ref_loader.translate_on_device(
+    box["t32"], starts, sizes, ref_loader.keep_from_bits(bits, 300)))
+timed("cbs", segment)
+
+
+def pinned(nbytes):
+    return lambda: box.update(p=torch.empty(nbytes, dtype=torch.uint8,
+                                            pin_memory=True))
+
+
+timed("pinned_64mib_first", pinned(64 << 20), ("first",))
+box.pop("p")
+timed("pinned_64mib_cached", pinned(64 << 20), ("first",))
+timed("pinned_256mib_new", pinned(256 << 20), ("first",))
+box.clear()
+out["total_s"] = time.perf_counter() - t_start
+out["end"] = time.perf_counter()
+print("COLD " + json.dumps(out), flush=True)
+"""
+
+def _cli_process(argv):
+    """The port's CLI with ``argv`` in a fresh process.  Returns (exit code,
+    wall seconds, {stage: seconds} from its ``[timing]`` lines, stderr)."""
+    import re
+
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [REPO] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "wisecondorx_tpu_torch.cli",
+                          *argv], cwd=REPO, env=env, capture_output=True,
+                         text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    stages = {}
+    for name, secs in re.findall(r"\[timing\] (\S+): ([0-9.]+)s", run.stderr):
+        stages[name] = round(stages.get(name, 0.0) + float(secs), 3)
+    return run.returncode, wall, stages, run.stderr
+
+
+def phase_cold(files, t21, ref, in_process):
+    """What a fresh process pays on the card before and while it runs the
+    main path: the interpreter alone (``python -c pass``), then one probe
+    process (:data:`COLD_PROBE`) that times, in order, ``import torch``,
+    ``import wisecondorx_tpu_torch.cli``, ``resolve_devices``, the context
+    (first round trip), the kernel library (hash check, build check,
+    load), the first and second call of each kernel family the path runs
+    (K1, K2, cuBLAS, sort/median, gather, the int64 translation, a CBS
+    segmentation with its Threefry rounds) and the first page-locked
+    blocks; then one ``newref`` and one ``predict --bed`` of the
+    trisomy-21 sample through the CLI, each in a fresh process, with their
+    walls and stages beside the in-process ones (``in_process``: the
+    newref and predict phases' records).  The fresh newref's reference
+    must equal the newref phase's, and the fresh predict's tables the
+    predict phase's byte for byte."""
+    spawn, import_torch = [], []
+    for code, walls in (("pass", spawn), ("import torch", import_torch)):
+        for _ in range(3):
+            t0 = time.perf_counter()
+            subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
+            walls.append(time.perf_counter() - t0)
+    run = subprocess.run([sys.executable, "-X", "importtime", "-c", "import torch"],
+                         capture_output=True, text=True, check=True, timeout=120)
+    imports = []  # (self us, cumulative us, module) of each import
+    for ln in run.stderr.splitlines():
+        parts = ln.split("|")
+        if ln.startswith("import time:") and parts[0].split()[-1].isdigit():
+            imports.append((int(parts[0].split()[-1]), int(parts[1]),
+                            parts[2].strip()))
+    script = os.path.join(WORK, "cold_probe.py")
+    with open(script, "w") as f:
+        f.write(COLD_PROBE)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [REPO] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, script, repr(t0)], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=600)
+    probe_wall = time.perf_counter() - t0
+    returned = time.perf_counter()
+    lines = [ln for ln in run.stdout.splitlines() if ln.startswith("COLD ")]
+    if run.returncode or not lines:
+        raise AssertionError(f"cold probe exited {run.returncode}:\n"
+                             + run.stderr[-3000:])
+    probe = json.loads(lines[-1][len("COLD "):])
+    emit("cold_breakdown", interpreter_s=spawn, import_torch_process_s=import_torch,
+         import_torch_cumulative_s=max(c for _, c, m in imports if m == "torch") / 1e6,
+         import_torch_top_self_s=[[m, us / 1e6] for us, _, m in
+                                  sorted(imports, reverse=True)[:8]],
+         probe_wall_s=probe_wall, exit_s=returned - probe.pop("end"), **probe)
+
+    problems = []
+    out = os.path.join(WORK, "cold_reference.npz")
+    code, wall, stages, err = _cli_process(
+        ["newref", *files, out, "--binsize", str(BINSIZE), "--refsize",
+         str(REFSIZE), "--device", CLI_DEVICE])
+    if code:
+        raise AssertionError(f"cold newref exited {code}:\n{err[-3000:]}")
+    diff = _npz_differences(out, ref)
+    if diff:
+        problems.append(f"the cold newref's reference differs in {diff}")
+    emit("cold_newref", seconds=wall, in_process_s=in_process["newref"]["seconds"],
+         reference_differs=diff, stages=stages,
+         in_process_stages=in_process["newref"]["stages"])
+    outid = os.path.join(WORK, "cold_case_t21")
+    code, wall, stages, err = _cli_process(
+        ["predict", t21, ref, outid, "--bed", "--device", CLI_DEVICE])
+    if code:
+        raise AssertionError(f"cold predict exited {code}:\n{err[-3000:]}")
+    single = os.path.join(WORK, "case_t21")
+    differ = [suffix for suffix in ("_bins.bed", "_segments.bed",
+                                    "_aberrations.bed", "_statistics.txt")
+              if open(outid + suffix, "rb").read()
+              != open(single + suffix, "rb").read()]
+    if differ:
+        problems.append(f"the cold predict's tables differ: {differ}")
+    emit("cold_predict", seconds=wall,
+         in_process_s=in_process["predict"]["seconds"], tables_differ=differ,
+         stages=stages, in_process_stages=in_process["predict"]["stages"])
+    if problems:
+        raise AssertionError("; ".join(problems))
 
 
 def phase_predict_batch(ref, plate, t21_outid, device):
@@ -1602,7 +1819,21 @@ def phase_wide(ml_main, device):
     return k1
 
 
-def trace_summary(paths, stage, top=5, gaps=3, counts=None):
+def _warm_correlations(events, warm_tids):
+    """Correlation ids of the device work launched from a warm-up thread:
+    one of ``warm_tids`` (the warm-up's native thread ids) or a thread
+    that holds a ``warmup`` range.  A trace taken on the main thread
+    records other threads' launches (and so their kernels) but not their
+    ranges, so the ids are what tells the warm-up's kernels apart."""
+    tids = set(warm_tids) | {e.get("tid") for e in events
+                             if e.get("cat") == "user_annotation"
+                             and e.get("name") == "warmup"}
+    return {e.get("args", {}).get("correlation") for e in events
+            if e.get("cat") in ("cuda_runtime", "cuda_driver")
+            and e.get("tid") in tids} - {None}
+
+
+def trace_summary(paths, stage, top=5, gaps=3, counts=None, warm_tids=()):
     """One stage's device activity over its ``torch.profiler`` Chrome
     traces ``paths`` (one per run of the stage).  In each, the window is
     the stage's own ``record_function`` range; device time is the union
@@ -1610,12 +1841,14 @@ def trace_summary(paths, stage, top=5, gaps=3, counts=None):
     on two streams at once counts once; an idle gap is a stretch of the
     window with no device event, labelled by the innermost host range
     (HOST_CATS, any thread, the stage's own range left out) covering its
-    midpoint, or "no host range".  Returns (summary over all runs: window
-    and device ms, busy share, kernel events, the ``top`` device
-    operations by time with their counts, the ``gaps`` longest idle gaps;
-    {operation name: device ms}); ``counts``, where given, receives
-    {operation name: events}."""
-    window_us = busy_us = 0.0
+    midpoint, or "no host range".  Device work the warm-up launched
+    (:func:`_warm_correlations`) is left out and summed apart.  Returns
+    (summary over all runs: window and device ms, busy share, kernel
+    events, the ``top`` device operations by time with their counts, the
+    ``gaps`` longest idle gaps, the warm-up's device ms; {operation name:
+    device ms}); ``counts``, where given, receives {operation name:
+    events}."""
+    window_us = busy_us = warm_us = 0.0
     kernels = 0
     ops, idle = {}, []
     for path in paths:
@@ -1628,10 +1861,14 @@ def trace_summary(paths, stage, top=5, gaps=3, counts=None):
             raise AssertionError(f"{path}: no {stage} range")
         window = max(own, key=lambda e: e["dur"])
         w0, w1 = window["ts"], window["ts"] + window["dur"]
+        warm = _warm_correlations(events, warm_tids)
         spans = []
         for e in events:
             a, b = max(e["ts"], w0), min(e["ts"] + e["dur"], w1)
             if e.get("cat") not in DEVICE_CATS or b <= a:
+                continue
+            if e.get("args", {}).get("correlation") in warm:
+                warm_us += b - a
                 continue
             spans.append((a, b))
             kernels += e["cat"] == "kernel"
@@ -1664,6 +1901,7 @@ def trace_summary(paths, stage, top=5, gaps=3, counts=None):
         "kernel_events": kernels,
         "top_ops": [[name[:120], t / 1e3, n] for name, (t, n) in ranked[:top]],
         "idle_gaps": [[g / 1e3, label] for g, label in sorted(idle, reverse=True)[:gaps]],
+        "warmup_device_ms": warm_us / 1e3,
     }
     return summary, {name: t / 1e3 for name, (t, _) in ops.items()}
 
@@ -1688,6 +1926,7 @@ def traced_call(run_dir, shape, label, argv, want_code=0):
     ({stage: (summary, {op: device ms}, {op: events})}, wall seconds);
     raises unless it exited with ``want_code``."""
     from wisecondorx_tpu_torch import cli
+    from wisecondorx_tpu_torch.device import warm_thread_ids
     from wisecondorx_tpu_torch.utils.log import reset_stage_times, stage_times
 
     before = {f for fs in _trace_files(run_dir).values() for f in fs}
@@ -1710,7 +1949,9 @@ def traced_call(run_dir, shape, label, argv, want_code=0):
         new = [f for f in files if f not in before]
         if new:
             counts = {}
-            stages[stage] = (*trace_summary(new, stage, counts=counts), counts)
+            stages[stage] = (*trace_summary(new, stage, counts=counts,
+                                            warm_tids=warm_thread_ids()),
+                             counts)
             emit("trace_stage", shape=shape, call=label, stage=stage,
                  stage_s=timed.get(stage), **stages[stage][0])
     window = sum(s[0]["window_ms"] for s in stages.values())
@@ -2077,8 +2318,9 @@ def main():
 
     knn_cuda.reset_launch_counts()
     cbs.reset_round_counts()
-    ref = phase_newref(files)
-    phase_predict(ref, t21, "case_t21", want_gain_chr="21", check_dispatch=True)
+    ref, newref_record = phase_newref(files)
+    predict_record = phase_predict(ref, t21, "case_t21", want_gain_chr="21",
+                                   check_dispatch=True)
     phase_predict(ref, euploid, "case_euploid", want_gain_chr=None)
     launches = dict(knn_cuda.LAUNCHES)
     rounds = dict(cbs.ROUNDS)
@@ -2088,6 +2330,16 @@ def main():
     emit("cbs_rounds", **rounds)
     if rounds["device"] < 1 or rounds["host"]:
         raise AssertionError(f"predict CBS rounds {rounds}: not the device stream")
+    warm = {call: {k: v for k, v in record["stages"].items()
+                   if k.startswith("warmup.")}
+            for call, record in (("newref", newref_record),
+                                 ("predict", predict_record))}
+    emit("warmup", stages=warm)
+    missing = ({"warmup.wait.newref"} - set(warm["newref"])) | (
+        {"warmup.wait.predict"} - set(warm["predict"]))
+    if missing:
+        raise AssertionError(f"warm-up stages missing: {sorted(missing)}")
+    phase_cold(files, t21, ref, {"newref": newref_record, "predict": predict_record})
 
     phase_predict_batch(ref, plate, os.path.join(WORK, "case_t21"), device)
     phase_cbs_stream(ref, t21, device)

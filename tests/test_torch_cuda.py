@@ -232,3 +232,32 @@ def test_scene_raster_on_the_card_equals_the_cpu_raster(dev):
     for scene in scenes:
         card = render_scene(scene, dev).cpu()
         assert torch.equal(card, render_scene(scene, torch.device("cpu"))), scene.name
+
+
+def test_warmup_warms_every_visible_card_apart_from_the_counters(dev, monkeypatch):
+    """newref's warm-up on every visible card: a context on each (one
+    round trip per card), the kernel library loaded, no launch counted
+    in LAUNCHES, and a kernel library that does not build fails it with
+    nvcc's message."""
+    from wisecondorx_tpu_torch import device as tdevice
+    from wisecondorx_tpu_torch.ops import _build
+    from wisecondorx_tpu_torch.utils import warmup
+
+    monkeypatch.setattr(warmup, "_started", {})
+    monkeypatch.setattr(tdevice, "_readback", {})
+    devices = tdevice.resolve_devices("cuda")
+    knn_cuda.reset_launch_counts()
+    warmup.start_warmup(devices).result()
+    assert knn_cuda.LAUNCHES == {"knn_bucket": 0, "knn_topk": 0}
+    assert _build._lib is not None
+    assert set(tdevice._readback) == set(devices)
+    assert all(tdevice._readback[d].result() > 0 for d in devices)
+
+    def no_nvcc():
+        raise RuntimeError("nvcc failed: planted by the test")
+
+    monkeypatch.setattr(warmup, "_started", {})
+    monkeypatch.setattr(_build, "_lib", None)
+    monkeypatch.setattr(_build, "build", no_nvcc)
+    with pytest.raises(RuntimeError, match="nvcc failed: planted"):
+        warmup.start_warmup(devices[:1]).result()

@@ -245,6 +245,31 @@ def test_npz_matches_jax(tmp_path, case):
                 np.testing.assert_array_equal(got[key], want[key])
 
 
+@pytest.mark.parametrize("writer", ["port", "jax"])
+def test_reference_npz_headers_match_jax(tmp_path, writer):
+    """The predict warm-up's header peek: the small members and the
+    indexes' shapes of each pass, equal to the JAX function's on a
+    reference written by either package."""
+    passes = _passes(np.random.default_rng(7))
+    path = str(tmp_path / "r.npz")
+    if writer == "port":
+        t_npz._savez_fast(path, t_npz.flatten_reference(
+            passes, is_nipt=False, trained_cutoff=0.42))
+    else:
+        j_npz.save_reference_npz(path, passes, is_nipt=False,
+                                 trained_cutoff=0.42)
+    got = t_npz.reference_npz_headers(path)
+    want = j_npz.reference_npz_headers(path)
+    assert got.keys() == want.keys() == passes.keys()
+    for gender, entry in want.items():
+        assert got[gender].keys() == entry.keys()
+        assert got[gender]["indexes_shape"] == entry["indexes_shape"] \
+            == passes[gender]["indexes"].shape
+        for key in ("mask", "bins_per_chr", "masked_bins_per_chr_cum"):
+            np.testing.assert_array_equal(got[gender][key], entry[key])
+            assert got[gender][key].dtype == entry[key].dtype
+
+
 # ---------------------------------------------------------------------------
 # output.tables
 # ---------------------------------------------------------------------------

@@ -54,6 +54,8 @@ PORT_MODULES = [
     "wisecondorx_tpu_torch.parallel.sharded_knn",
     "wisecondorx_tpu_torch.utils.checkpoint",
     "wisecondorx_tpu_torch.utils.log",
+    "wisecondorx_tpu_torch.utils.threads",
+    "wisecondorx_tpu_torch.utils.warmup",
 ]
 
 REPO = pathlib.Path(__file__).resolve().parent.parent

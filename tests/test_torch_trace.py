@@ -179,3 +179,38 @@ def test_trace_summary_needs_the_stage_range(tmp_path):
     path.write_text(json.dumps({"traceEvents": [_x("kernel", "k", 0, 5)]}))
     with pytest.raises(AssertionError, match="no predict.cbs range"):
         chip_smoke.trace_summary([str(path)], "predict.cbs")
+
+
+@pytest.mark.parametrize("found_by", ["thread_id", "warmup_range"])
+def test_trace_summary_leaves_the_warmups_device_work_apart(tmp_path, found_by):
+    """A kernel launched from a warm-up thread (tid 5: named by its native
+    id, or holding a ``warmup`` range) inside the window is summed as the
+    warm-up's device time, not the stage's; the main thread's (tid 1)
+    counts as before."""
+    def launch(tid, correlation, ts):
+        event = _x("cuda_runtime", "cudaLaunchKernel", ts, 1, tid=tid)
+        event["args"] = {"correlation": correlation}
+        return event
+
+    def kernel(name, correlation, ts, dur):
+        event = _x("kernel", name, ts, dur, tid=7)
+        event["args"] = {"correlation": correlation}
+        return event
+
+    events = [
+        _x("user_annotation", "newref.load_inputs", 0, 100),
+        launch(1, 11, 5), kernel("k_main", 11, 10, 20),
+        launch(5, 12, 40), kernel("knn_bucket_kernel", 12, 50, 30),
+    ]
+    warm_tids = {5}
+    if found_by == "warmup_range":
+        events.append(_x("user_annotation", "warmup", 30, 60, tid=5))
+        warm_tids = set()
+    path = tmp_path / "t.pt.trace.json"
+    path.write_text(json.dumps({"traceEvents": events}))
+    summary, ops = chip_smoke.trace_summary([str(path)], "newref.load_inputs",
+                                            warm_tids=warm_tids)
+    assert summary["device_ms"] == pytest.approx(0.02)
+    assert summary["warmup_device_ms"] == pytest.approx(0.03)
+    assert summary["kernel_events"] == 1
+    assert ops == pytest.approx({"k_main": 0.02})

@@ -41,24 +41,37 @@ def tool_convert(args):
 
 
 def tool_newref(args):
+    from wisecondorx_tpu_torch.device import resolve_devices
+    from wisecondorx_tpu_torch.parallel.multihost import (
+        maybe_initialize_distributed,
+    )
+    from wisecondorx_tpu_torch.utils import warmup
+
+    rank, world = maybe_initialize_distributed()
+    devices = resolve_devices(args.device)
+    # Device start-up overlaps the input parsing; the build joins it
+    # before its first device use (the --plotyfrac figure needs no warm-up).
+    warm = (warmup.start_warmup(devices) if args.plotyfrac is None
+            else warmup.Warmup([], "newref"))
+    try:
+        _newref(args, rank, world, devices, warm)
+    finally:
+        warm.wait()
+
+
+def _newref(args, rank, world, devices, warm):
     from wisecondorx_tpu_torch.io.npz import (
         _savez_fast,
         flatten_reference,
         verify_reference_npz,
     )
     from wisecondorx_tpu_torch.ref_qc import qc_reference_arrays
-    from wisecondorx_tpu_torch.device import resolve_devices
     from wisecondorx_tpu_torch.models.reference import (
         NewrefConfig,
         NewrefError,
         build_reference,
     )
-    from wisecondorx_tpu_torch.parallel.multihost import (
-        maybe_initialize_distributed,
-    )
 
-    rank, world = maybe_initialize_distributed()
-    devices = resolve_devices(args.device)
     logging.info("Creating new reference on %s%s",
                  ", ".join(map(str, devices)),
                  f" (process {rank} of {world})" if world > 1 else "")
@@ -87,7 +100,7 @@ def tool_newref(args):
                        checkpoint_dir=args.checkpoint_dir)
     try:
         passes, meta = build_reference(samples, cfg, devices[0],
-                                       devices=devices)
+                                       devices=devices, warmup=warm)
     except NewrefError as e:
         logging.critical(str(e))
         sys.exit(1)
@@ -150,17 +163,29 @@ def _write_plots(args, outid, bins, segments, cfg, device):
 
 
 def tool_test(args):
-    from wisecondorx_tpu_torch.output.tables import generate_output_tables
     from wisecondorx_tpu_torch.device import resolve_device
-    from wisecondorx_tpu_torch.models.predictor import PredictError, predict
-    from wisecondorx_tpu_torch.models.ref_loader import ReferenceLoader
+    from wisecondorx_tpu_torch.utils import warmup
 
     cfg = _predict_config(args)
     device = resolve_device(args.device)
+    # Device start-up overlaps the sample's load; the loader joins it
+    # before its first upload.
+    warm = warmup.start_predict_warmup(args.reference, device)
+    try:
+        _predict(args, cfg, device, warm)
+    finally:
+        warm.wait()
+
+
+def _predict(args, cfg, device, warm):
+    from wisecondorx_tpu_torch.output.tables import generate_output_tables
+    from wisecondorx_tpu_torch.models.predictor import PredictError, predict
+    from wisecondorx_tpu_torch.models.ref_loader import ReferenceLoader
+
     logging.info("Starting CNA prediction on %s", device)
     with stage_timer("predict.load_sample"):
         sample, sample_binsize, _ = load_sample_npz(args.infile)
-    with ReferenceLoader(args.reference, device) as loader:
+    with ReferenceLoader(args.reference, device, warmup=warm) as loader:
         try:
             bins, segments = predict(sample, sample_binsize, None, cfg,
                                      loader=loader)
@@ -180,26 +205,37 @@ def tool_test_batch(args):
     """Score a plate of samples against one reference in one invocation.
     Unreadable samples and samples that fail preparation are logged and
     skipped, the others are written, and the exit code is then 3."""
+    from wisecondorx_tpu_torch.device import resolve_devices
+    from wisecondorx_tpu_torch.parallel.multihost import (
+        maybe_initialize_distributed,
+    )
+    from wisecondorx_tpu_torch.utils import warmup
+
+    cfg = _predict_config(args)
+    rank, world = maybe_initialize_distributed()
+    devices = resolve_devices(args.device)
+    # As in predict, on every device.
+    warm = warmup.start_predict_batch_warmup(args.reference, devices)
+    try:
+        _predict_batch(args, cfg, rank, world, devices, warm)
+    finally:
+        warm.wait()
+
+
+def _predict_batch(args, cfg, rank, world, devices, warm):
     import os
     import pickle
     import zipfile
 
     from wisecondorx_tpu_torch.errors import UserInputError
     from wisecondorx_tpu_torch.output.tables import generate_output_tables
-    from wisecondorx_tpu_torch.device import resolve_devices
     from wisecondorx_tpu_torch.models.predictor import (
         PredictError,
         segment_bins_batch,
     )
     from wisecondorx_tpu_torch.parallel.batch import predict_batch
-    from wisecondorx_tpu_torch.parallel.multihost import (
-        maybe_initialize_distributed,
-        shard_files,
-    )
+    from wisecondorx_tpu_torch.parallel.multihost import shard_files
 
-    cfg = _predict_config(args)
-    rank, world = maybe_initialize_distributed()
-    devices = resolve_devices(args.device)
     infiles = shard_files(args.infiles, rank, world)
     if world > 1:
         logging.info("Process %d of %d takes %d of %d samples", rank, world,
@@ -225,7 +261,8 @@ def tool_test_batch(args):
                  ", ".join(map(str, devices)))
     try:
         all_bins = predict_batch(loaded, args.reference, cfg, devices,
-                                 chunk=args.chunk, skip_errors=True)
+                                 chunk=args.chunk, skip_errors=True,
+                                 warmup=warm)
     except PredictError as e:
         logging.critical(str(e))
         sys.exit(1)

@@ -15,12 +15,23 @@ bits, and the Gram and distance products here resolve differences many
 decades below their operands' norms (the same trap as the TPU's bf16
 default).  PyTorch already defaults matmuls to full float32, but cuDNN
 defaults to TF32, so both are set explicitly.
+
+A fresh process pays for its first touch of a card (the CUDA context, the
+first copy each way): :func:`warm_readback_channel` does that on a daemon
+thread, first in every warm-up (utils/warmup.py).  Warm device work runs
+under :func:`warm_work`, so a trace can tell it from the main path's.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
+import time
+
 import numpy as np
 import torch
+
+from wisecondorx_tpu_torch.utils.threads import DaemonFuture, start_once
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -77,3 +88,53 @@ def to_device(array, device: torch.device,
     if torch.device(device).type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t
+
+
+#: Native ids of the threads that ran warm work in this process.
+_WARM_THREAD_IDS: set = set()
+
+
+@contextlib.contextmanager
+def warm_work(device: torch.device):
+    """Run the block as a warm-up's device work on ``device``: this
+    thread's native id kept (:func:`warm_thread_ids`), inside a
+    ``record_function("warmup")`` range, on a CUDA stream of its own, and
+    synchronized at its end."""
+    device = torch.device(device)
+    _WARM_THREAD_IDS.add(threading.get_native_id())
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(torch.profiler.record_function("warmup"))
+        if device.type == "cuda":
+            stack.enter_context(torch.cuda.stream(torch.cuda.Stream(device)))
+        yield
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+
+def warm_thread_ids() -> set:
+    """Native ids of the threads that ran :func:`warm_work` so far."""
+    return set(_WARM_THREAD_IDS)
+
+
+#: The round trip of each device, started once per process.
+_readback: dict = {}
+
+
+def warm_readback_channel(devices) -> list[DaemonFuture]:
+    """Start (once per process and device) one small host -> device ->
+    host round trip per device, as :func:`warm_work`, on a daemon thread
+    ``wcx-warm-d2h-<device>``: it creates the device's CUDA context and
+    makes the first copy each way.  Returns one future per device;
+    ``result()`` gives the round trip's seconds or raises its error."""
+    def round_trip(dev):
+        t0 = time.perf_counter()
+        with warm_work(dev):
+            back = (torch.zeros(8, device=dev) + 1).cpu()
+        if not bool((back == 1).all()):
+            raise RuntimeError(f"{dev}: the warm-up round trip read back {back}")
+        return time.perf_counter() - t0
+
+    return [start_once(_readback, torch.device(d),
+                       lambda d=torch.device(d): round_trip(d),
+                       f"wcx-warm-d2h-{torch.device(d)}")
+            for d in devices]

@@ -18,9 +18,8 @@ Keeping the formats identical lets a reference npz drive our predictor (and
 vice versa), which is the basis of the parity test-suite.
 
 Copy of wisecondorx_tpu/io/npz.py with what only the JAX package uses left
-out (its warm-up header peek and distance-skipping load); the port imports
-nothing of that package, and tests/test_torch_host.py holds the two to the
-same bytes.
+out (its distance-skipping load); the port imports nothing of that
+package, and tests/test_torch_host.py holds the two to the same bytes.
 """
 
 from __future__ import annotations
@@ -467,3 +466,41 @@ def load_member_rows(path, key, row_start: int):
         return np.load(path, encoding="latin1", allow_pickle=True)[key][
             row_start:
         ]
+
+
+def reference_npz_headers(path):
+    """Cheap structural peek at a reference npz: per-pass small arrays
+    (mask, bins_per_chr, cumsums) plus the SHAPES of the big tables, read
+    without decompressing the tables themselves -- the predict warm-up
+    reads ``k`` from it before the tables arrive (utils/warmup.py).
+    """
+    import zipfile
+
+    npz = np.load(path, encoding="latin1", allow_pickle=True)
+    out = {}
+    with zipfile.ZipFile(path) as zf:
+        names = set(zf.namelist())
+        for gender in ("A", "F", "M"):
+            suffix = "" if gender == "A" else f".{gender}"
+            if f"bins_per_chr{suffix}.npy" not in names:
+                continue
+            entry = {
+                "mask": np.asarray(npz[f"mask{suffix}"], dtype=bool),
+                "bins_per_chr": np.asarray(npz[f"bins_per_chr{suffix}"]),
+                "masked_bins_per_chr_cum": np.asarray(
+                    npz[f"masked_bins_per_chr_cum{suffix}"]
+                ),
+            }
+            with zf.open(f"indexes{suffix}.npy") as member:
+                version = np.lib.format.read_magic(member)
+                readers = {
+                    (1, 0): np.lib.format.read_array_header_1_0,
+                    (2, 0): np.lib.format.read_array_header_2_0,
+                }
+                reader = readers.get(
+                    tuple(version), np.lib.format.read_array_header_2_0
+                )
+                shape, _, _ = reader(member)
+            entry["indexes_shape"] = shape
+            out[gender] = entry
+    return out

@@ -373,11 +373,15 @@ class ReferenceLoader:
     read only where it needs one (with the ``wcx_*`` caches at the default
     depth, or at an infinite cutoff, none is).  The ``[timing]`` stages of
     the members overlap: they say where the bytes went, not how the wall
-    clock adds up."""
+    clock adds up.
 
-    def __init__(self, path, device: torch.device):
+    ``warmup`` (a ``utils.warmup.Warmup``, or None) is joined before the
+    first upload, and its error raised there."""
+
+    def __init__(self, path, device: torch.device, warmup=None):
         self.path = path
         self.device = torch.device(device)
+        self._warmup = warmup
         self.passes, self.meta = load_reference_small(path)
         self._pool = ThreadPoolExecutor(max_workers=8,
                                         thread_name_prefix="wcx-ref-loader")
@@ -407,6 +411,8 @@ class ReferenceLoader:
 
     def _tables(self, gender: str) -> PassTables:
         dist = self._futs.get(("dist", gender))
+        if self._warmup is not None:
+            self._warmup.result()
         tables = build_pass_tables(
             self.passes[gender], gender, self._futs["cutoff"].result(),
             self.device, self.passes["A"],

@@ -69,6 +69,7 @@ from wisecondorx_tpu_torch.parallel.multihost import (
 from wisecondorx_tpu_torch.parallel.sharded_knn import knn_search_multidevice
 from wisecondorx_tpu_torch.utils.checkpoint import NewrefCheckpoint, fingerprint
 from wisecondorx_tpu_torch.utils.log import stage_timer
+from wisecondorx_tpu_torch.utils.threads import DaemonFuture as _DaemonFuture
 
 
 class NewrefError(RuntimeError, UserInputError):
@@ -113,7 +114,7 @@ _PASS_KEYS = (
 
 def build_reference(samples_with_binsize: list[tuple[dict, int]],
                     config: NewrefConfig, device: torch.device,
-                    _null_chooser=None, devices=None):
+                    _null_chooser=None, devices=None, warmup=None):
     """Build a normalization reference from negative-control samples.
 
     ``samples_with_binsize``: (sample dict, binsize) pairs as loaded from
@@ -121,7 +122,9 @@ def build_reference(samples_with_binsize: list[tuple[dict, int]],
     ``devices`` (default ``[device]``) share each KNN search's rows, and
     in a multi-process run each process searches its share on its own
     ``devices``.  ``_null_chooser(gender, n_samples)`` overrides the
-    seeded null-ratio sample draw (parity tests).
+    seeded null-ratio sample draw (parity tests).  ``warmup`` (a
+    ``utils.warmup.Warmup``, or None) is joined just before the first
+    device use, the cohort's upload, and its error raised there.
 
     Returns (passes dict of numpy arrays in the npz schema, meta dict).
     """
@@ -171,6 +174,8 @@ def build_reference(samples_with_binsize: list[tuple[dict, int]],
 
     ckpt = _open_checkpoint(cfg, matrix)
     device = torch.device(device)
+    if warmup is not None:
+        warmup.result()
     # Timed where it copies, as the JAX package times its device upload.
     with (stage_timer("newref.cohort_upload") if device.type != "cpu"
           else contextlib.nullcontext()):
@@ -283,35 +288,6 @@ def _build_serial(plan, cohort, layout, total_mask, cfg, null_chooser,
         ckpt.save(f"pass_{gender}", total_mask_after=total_mask[:pass_bins],
                   **passes[gender])
     return passes
-
-
-class _DaemonFuture:
-    """Run ``fn`` on a daemon thread; ``result()`` re-raises its error.
-
-    Unlike a ThreadPoolExecutor's workers, a daemon thread is not joined
-    at interpreter exit, so a search cannot hold up a process that is
-    exiting with an error."""
-
-    def __init__(self, fn, name):
-        self._out = self._exc = None
-        self._thread = threading.Thread(target=self._run, args=(fn,),
-                                        name=name, daemon=True)
-        self._thread.start()
-
-    def _run(self, fn):
-        try:
-            self._out = fn()
-        except BaseException as e:  # re-raised in result()
-            self._exc = e
-
-    def wait(self):
-        self._thread.join()
-
-    def result(self):
-        self._thread.join()
-        if self._exc is not None:
-            raise self._exc
-        return self._out
 
 
 class _Stopped(Exception):

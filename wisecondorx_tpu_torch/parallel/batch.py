@@ -65,8 +65,8 @@ def _run_pass_batched(samples, ref_pass, tables: PassTables, chunk: int):
 
 
 def predict_batch(samples_with_binsize, reference: str, cfg: PredictConfig,
-                  devices, chunk: int = 8,
-                  skip_errors: bool = False) -> list[BinResults | None]:
+                  devices, chunk: int = 8, skip_errors: bool = False,
+                  warmup=None) -> list[BinResults | None]:
     """Per-bin results of a plate of samples against the reference
     ``.npz`` at ``reference``, in the plate's order.
 
@@ -76,14 +76,17 @@ def predict_batch(samples_with_binsize, reference: str, cfg: PredictConfig,
 
     ``skip_errors``: a sample that fails preparation (for example one
     missing chromosomes) is logged and left as ``None`` instead of
-    aborting the plate."""
+    aborting the plate.
+
+    ``warmup`` (a ``utils.warmup.Warmup``, or None) is joined by each
+    device's ``ReferenceLoader`` before its first upload."""
     cfg.validate()
     devices = [torch.device(d) for d in devices]
     bounds = np.linspace(0, len(samples_with_binsize),
                          len(devices) + 1).astype(int)
 
     def run(dev, a, b):
-        with ReferenceLoader(reference, dev) as loader:
+        with ReferenceLoader(reference, dev, warmup=warmup) as loader:
             return _predict_part(samples_with_binsize[a:b], loader, cfg,
                                  chunk, skip_errors, first=a)
 
