@@ -52,10 +52,21 @@ Phases, each printing one JSON line on stdout (logs go to stderr):
    host permutation stream), and the trisomy-21 sample's segments and
    calls equal to its single predict's;
 8. cbs_stream -- on the trisomy-21 sample's CBS jobs: one round's Threefry
-   keys equal on CUDA and the CPU, the first-level decisions of the device
-   stream equal on both, the sample's CBS time with the device and the host
-   permutation stream on the card, and one whole device-stream round
-   (``perm_round_device``) timed beside its bound (:func:`_cbs_round_bound`);
+   keys equal on CUDA (the kernel) and the CPU, the first-level decisions
+   of the device stream equal on both; then ``cbs_kernels``
+   (:func:`cbs_kernel_checks`): the CBS kernels (csrc/cbs_arcs.cu's arc
+   max and argmax, csrc/cbs_keys.cu's sort keys) against their plain
+   PyTorch versions on the card at the sample's first round (n_pad 8,192,
+   thin), its exact-mode bucket (n_pad 2,048) and a seeded bench-shape
+   round (two segments of 15 kb chr1 and chr2 sizes, n_pad 32,768): keys
+   bit-equal, maxima bit-equal or within rtol 1e-12 with the same NaN
+   positions, exceed counts equal, (i*, L*) equal on every first-level
+   bucket, the NaN fixtures (:func:`cbs_arc_rows`) too, each timed beside
+   its plain version and its bound; one whole device-stream round
+   (``perm_round_device``) with the kernels and with the plain versions,
+   beside its bound (:func:`_cbs_round_bound`); and the sample's CBS time
+   with the device stream (kernels, then the plain versions on the card:
+   equal segments) and with the host stream;
 9. plots -- ``predict --bed --plot`` of the trisomy-21 sample through the
    CLI, timed with its scene, raster and encode stages; every figure
    decoded with ``read_png`` at its pixel size; gain-coloured pixels across
@@ -117,7 +128,8 @@ Phases, each printing one JSON line on stdout (logs go to stderr):
    one's; K1 and K2 kernel events in newref's traced stages at both shapes
    (the searches run on their own threads, so their kernels land in
    whatever stage the main thread traces), and traces with device kernels
-   for ``predict.cbs`` (one from predict, one from predict-batch) and
+   for ``predict.cbs`` (one from predict, one from predict-batch, each
+   holding the CBS arc max and key kernels' events) and
    ``predict.plots.raster``; at the bench shape both kernels launched,
    their summed device time and traced launches, K1 and K2 at the A pass's
    first row chunk beside their plain versions, their bounds and their
@@ -127,20 +139,26 @@ Phases, each printing one JSON line on stdout (logs go to stderr):
    (the bar of phase 10).
 
 The kernels' launch counters are set to 0 just before newref and read just
-after predict (the warm-ups launch no KNN kernel): both kernels
+after predict (the warm-ups launch no kernel): both KNN kernels
 must have run on that path (predict-batch runs
-no KNN kernel, nor do the plots).  Each later path that searches (the resumed newref, the
+no KNN kernel, nor do the plots), and the CBS arc max and keys (both
+samples stay whole, so predict locates no split).  The CBS counters are
+set to 0 again just before predict-batch and read just after: the plate
+must have launched all three CBS kernels.  Each later path that searches (the resumed newref, the
 two-device search, each worker's newref, the wide newref, the bench-shape
 newref) is read the same way and must have launched both kernels too.
 Then one JSON line lists the kernels (K1 with its wide-shape times, each
 with its launches and the launches its traces caught in the traced main
 newref, and its launches, traced launches, device time and chunk times in
-the bench-shape newref), and the last line is
+the bench-shape newref; the CBS kernels with predict-batch's launches,
+the main path's, and their times at every ``cbs_kernels`` shape, the
+first shape's in the standard keys), and the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failure raises, and the script exits non-zero without that line.  It
 writes only under build/chip_smoke/ in the checkout.
 """
 
+import contextlib
 import json
 import os
 import shutil
@@ -181,13 +199,16 @@ H100_BYTES_PER_S = 3.35e12
 H100_FP32_FLOPS = 67e12
 H100_FP64_FLOPS = 34e12
 H100_INT32_OPS = 64 * 132 * 1.98e9
-#: 32-bit integer operations of one Threefry-2x32 block (ops/cbs.py
-#: threefry2x32): 2 key additions, 20 rounds of add, two shifts, or and
-#: xor, and 5 key injections of 3 additions.
-THREEFRY_OPS = 2 + 20 * 5 + 5 * 3
-#: Floating-point operations of one arc's |T| (ops/cbs.py _tstat_block):
-#: 4 differences of cumulative sums, 2 quotients, a difference, 2
-#: reciprocals, a sum, rsqrt, a product, abs and the running max.
+#: 32-bit integer operations of one Threefry-2x32 block (csrc/cbs_keys.cu
+#: threefry; its plain version ops/cbs.py threefry2x32): 2 key additions,
+#: 20 rounds of an add, a rotation and a xor, and 5 key injections of 3
+#: additions.  A rotation is one funnel shift on the card.
+THREEFRY_OPS = 2 + 20 * 3 + 5 * 3
+#: Floating-point operations of one arc's |T| (csrc/cbs_arcs.cu, the
+#: window loop and abs_t; its plain version ops/cbs.py _tstat_block), each
+#: counted once: 4 differences of cumulative sums, 2 quotients, a
+#: difference, 2 reciprocals, a sum, rsqrt, a product, abs and the
+#: running max.
 ARC_OPS = 14
 #: The plots phase: the plate samples it runs predict-batch --plot on, and
 #: the pixel sizes of the figures (matplotlib's figsize x dpi).
@@ -212,6 +233,10 @@ BENCH_BINSIZE = 15000
 BENCH_GENOME_SCALE = 1.0
 BENCH_FEMALE = BENCH_MALE = 250
 BENCH_SEED = 2
+#: The CBS kernels' bench-shape round: two segments of the sizes of chr1
+#: and chr2 at 15 kb bins (about 249 and 242 Mb), in the n_pad 32,768
+#: bucket.
+BENCH_CBS_SIZES = (16597, 16133)
 #: Rows of the bench-shape A pass held against the exact float64 search.
 BENCH_CHECK_ROWS = 8192
 #: Chrome-trace categories of device work, and of the host ranges that
@@ -224,6 +249,9 @@ REQUIRED_TRACES = (("main", "predict.cbs"), ("main", "predict.plots.raster"))
 #: names the traces give them.
 NEWREF_TRACE_KERNELS = {"knn_bucket": "knn_bucket_kernel",
                         "knn_topk": "knn_topk_kernel"}
+#: CBS kernels that the traced predict.cbs stages (predict and
+#: predict-batch, main shape) must hold.
+CBS_TRACE_KERNELS = ("arc_max_kernel", "cbs_keys_kernel")
 
 
 def emit(phase, **fields):
@@ -735,6 +763,7 @@ def phase_predict_batch(ref, plate, t21_outid, device):
     outdir = os.path.join(WORK, "plate_out")
     reset_stage_times()
     cbs.reset_round_counts()
+    cbs.reset_launch_counts()
     t0 = time.perf_counter()
     try:
         cli.main(["predict-batch", ref, outdir, "--bed", "--device", CLI_DEVICE,
@@ -745,6 +774,7 @@ def phase_predict_batch(ref, plate, t21_outid, device):
         code = 0
     wall = time.perf_counter() - t0
     rounds = dict(cbs.ROUNDS)
+    launches = dict(cbs.LAUNCHES)
     stages = {k: round(v, 3) for k, v in stage_times().items()}
     if code != 3:
         raise AssertionError(f"predict-batch exited {code}, want 3")
@@ -780,11 +810,16 @@ def phase_predict_batch(ref, plate, t21_outid, device):
     problems += _batch_vs_single(os.path.join(outdir, "case_t21"), t21_outid)
     emit("predict_batch", samples=len(scored), exit_code=code,
          seconds=round(wall, 3), seconds_per_sample=round(wall / len(scored), 4),
-         cbs_rounds=rounds, calls=calls, unplanted=unplanted, stages=stages)
+         cbs_rounds=rounds, cbs_launches=launches, calls=calls,
+         unplanted=unplanted, stages=stages)
     if rounds["device"] < 1 or rounds["host"]:
         raise AssertionError(f"predict-batch CBS rounds {rounds}: not the device stream")
+    for name, count in launches.items():
+        if count < 1:
+            raise AssertionError(f"kernel {name} was not launched by predict-batch")
     if problems:
         raise AssertionError("; ".join(problems))
+    return launches
 
 
 def _unplanted_calls(ref, path, name, extra, planted, device):
@@ -873,14 +908,20 @@ def _is_number(v):
 
 def phase_cbs_stream(ref, case, device):
     """The device permutation stream on the trisomy-21 sample's CBS jobs
-    (its chromosomes at 50 kb): one round's Threefry keys on CUDA equal to
-    the same call on the CPU; the decisions of every first-level (bucket,
-    mode) group equal on CUDA and on the CPU; and the CBS time of the
-    sample with the device and with the host stream, both on the card.
+    (its chromosomes at 50 kb): one round's Threefry keys on CUDA (the
+    kernel) equal to the same call on the CPU (the plain version); the
+    decisions of every first-level (bucket, mode) group equal on CUDA and on
+    the CPU; the CBS kernels against their plain versions
+    (:func:`cbs_kernel_checks`); one whole device-stream round
+    (``perm_round_device``) with the kernels and with the plain versions on
+    the card, beside its bound (:func:`_cbs_round_bound`); and the
+    sample's CBS time with the device stream (kernels, then the plain
+    versions on the card, whose segments must be equal) and the host stream.
 
     The decision check runs at ``nperm`` 40 (alpha 0.025, so two
     exceedances reject, as 1e-4 does at 10,000): the CPU side would
-    otherwise take many minutes on the exact-length buckets."""
+    otherwise take many minutes on the exact-length buckets.  Returns
+    :func:`cbs_kernel_checks`' record."""
     import numpy as np
     import torch
 
@@ -922,18 +963,26 @@ def phase_cbs_stream(ref, case, device):
     keys_shape = list(keys_cpu.shape)
     del keys_cpu
 
+    kernels = cbs_kernel_checks(jobs, salts, first_level(cfg), cfg, device)
+
     # One whole round (keys, shuffle, arc statistic) at the same shape,
-    # timed beside its bound.
+    # timed beside its bound, with the kernels and with the plain versions.
     w_seg, wx_seg, n_seg_t = cbs._seg_tables(items, jobs, n_pad, device)
     round_shape = [len(items), n_pad, mode]
     lengths = cbs._group_lengths(n_pad, cfg, mode)
     seg, words = cbs._round_rows(items, active, counts, salts, device)
     live = torch.ones(len(seg), dtype=torch.bool, device=device)
     obs0 = torch.zeros(len(items), dtype=w_seg.dtype, device=device)
-    lengths_t = torch.as_tensor(lengths, device=device)
-    round_ms = cuda_ms(lambda: cbs.perm_round_device(
-        cbs.prng_key(cfg.seed), w_seg, wx_seg, n_seg_t, seg, live, *words, obs0,
-        lengths_t, cfg.min_width, cfg.kmax))
+    lengths_t = cbs._lengths_tensor(n_pad, cfg, mode, device)
+
+    def one_round():
+        return cbs.perm_round_device(
+            cbs.prng_key(cfg.seed), w_seg, wx_seg, n_seg_t, seg, live, *words,
+            obs0, lengths_t, cfg.min_width, cfg.kmax)
+
+    round_ms = cuda_ms(one_round)
+    with plain_cbs():
+        round_plain_ms = cuda_ms(one_round)
     round_bound = _cbs_round_bound(n_seg[seg.cpu().numpy()], n_seg, n_pad,
                                    w_seg.element_size(), lengths, cfg)
     del w_seg, wx_seg
@@ -944,8 +993,7 @@ def phase_cbs_stream(ref, case, device):
     for name, dev in (("card", device), ("cpu", cpu)):
         out = []
         for (n_pad, mode), group in first_level(check_cfg):
-            lengths = torch.as_tensor(cbs._group_lengths(n_pad, check_cfg, mode),
-                                      device=dev)
+            lengths = cbs._lengths_tensor(n_pad, check_cfg, mode, dev)
             for it in group:
                 it.max_ones = int(np.floor(check_cfg.nperm * check_cfg.alpha)) + 1
             for chunk in cbs._chunks(group, check_cfg.seg_batch):
@@ -955,31 +1003,213 @@ def phase_cbs_stream(ref, case, device):
                                       for it in group]])
         decisions[name] = out
 
-    # Whole-sample CBS, device stream then host stream, on the card.
+    # Whole-sample CBS on the card: the device stream with the kernels, then
+    # with the plain versions, then the host stream.
     times = {}
-    for stream in ("device", "host"):
+    for route in ("device", "plain", "host"):
         cbs.reset_round_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        segs = cbs.exec_cbs(*args, cfg, device, _device_stream=stream == "device")
+        if route == "plain":
+            with plain_cbs():
+                segs = cbs.exec_cbs(*args, cfg, device, _device_stream=True)
+        else:
+            segs = cbs.exec_cbs(*args, cfg, device,
+                                _device_stream=route == "device")
         torch.cuda.synchronize()
-        times[stream] = (time.perf_counter() - t0, dict(cbs.ROUNDS), len(segs))
+        times[route] = (time.perf_counter() - t0, dict(cbs.ROUNDS), segs)
     splits = sum(d for _, _, g in decisions["cpu"] for d, _, _ in g)
     emit("cbs_stream", jobs=len(jobs), sizes=[len(x) for x, _ in jobs],
          keys_round_shape=keys_shape, keys_equal=keys_equal, keys_ms=keys_ms,
          keys_per_s=keys_shape[0] * keys_shape[1] / keys_ms * 1e3,
          round_segments_n_pad_mode=round_shape, round_ms=round_ms,
-         round_bound=round_bound,
+         round_plain_ms=round_plain_ms, round_bound=round_bound,
          decisions_equal=decisions["card"] == decisions["cpu"],
          first_level=decisions["card"], first_level_splits=splits,
          cbs_device_s=round(times["device"][0], 3),
+         cbs_plain_s=round(times["plain"][0], 3),
          cbs_host_s=round(times["host"][0], 3),
-         rounds_device=times["device"][1], rounds_host=times["host"][1],
-         segments=[times["device"][2], times["host"][2]])
+         rounds_device=times["device"][1], rounds_plain=times["plain"][1],
+         rounds_host=times["host"][1],
+         segments=[len(times[r][2]) for r in ("device", "plain", "host")],
+         plain_segments_equal=times["plain"][2] == times["device"][2])
     if not keys_equal:
         raise AssertionError("Threefry keys differ between CUDA and the CPU")
     if decisions["card"] != decisions["cpu"]:
         raise AssertionError("device-stream decisions differ between CUDA and the CPU")
+    if times["plain"][2] != times["device"][2]:
+        raise AssertionError("the CBS kernels' segments differ from the plain versions'")
+    return kernels
+
+
+@contextlib.contextmanager
+def plain_cbs():
+    """Within this context the CBS wrappers take their plain versions on
+    the card too (``ops.cbs._on_card`` patched): the plain route, for
+    comparisons only."""
+    from wisecondorx_tpu_torch.ops import cbs
+
+    saved = cbs._on_card
+    cbs._on_card = lambda t: False
+    try:
+        yield
+    finally:
+        cbs._on_card = saved
+
+
+def _nan_equal(got, want):
+    """(NaN and -inf positions equal, bit-equal elsewhere, max abs error
+    over the finite entries) of two float64 tensors."""
+    import torch
+
+    same_nan = torch.equal(torch.isnan(got), torch.isnan(want))
+    same_inf = torch.equal(torch.isinf(got), torch.isinf(want))
+    fin = torch.isfinite(got) & torch.isfinite(want)
+    bits = torch.equal(torch.where(torch.isnan(got), 0.0, got).view(torch.int64),
+                       torch.where(torch.isnan(want), 0.0, want).view(torch.int64))
+    err = float((got[fin] - want[fin]).abs().max()) if bool(fin.any()) else 0.0
+    close = bool(torch.allclose(got[fin], want[fin], rtol=1e-12, atol=0.0))
+    return same_nan and same_inf and close, same_nan and same_inf and bits, err
+
+
+def cbs_kernel_checks(jobs, salts, groups, cfg, device):
+    """The CBS kernels against their plain versions on the card, each
+    timed beside its plain version and its bound (:func:`_arc_bound`,
+    :func:`_keys_bound`), at three shapes: the trisomy-21 sample's first
+    round (its first (bucket, mode) group, as the round allots rows), its
+    exact-mode group at n_pad 2,048, and a seeded bench-shape round (two
+    segments of BENCH_CBS_SIZES bins, 15 kb chr1 and chr2, n_pad 32,768,
+    thin).  Per shape: the keys bit-equal; the round's maxima (observed rows
+    and permuted rows, as ``perm_round_device`` builds them) bit-equal or
+    within rtol 1e-12 with the same NaN and -inf positions, and the exceed
+    counts equal.  The locate scan's (i*, L*) equal on every first-level
+    bucket of the sample (timed on its largest) and on the bench segments;
+    maxima and (i*, L*) equal on the NaN fixtures
+    (:func:`cbs_arc_rows` at n_pad 2,048 exact and 8,192 thin).  Returns
+    {kernel: record} and emits one ``cbs_kernels`` line; fails on any
+    difference."""
+    import numpy as np
+    import torch
+
+    from wisecondorx_tpu_torch.ops import cbs
+
+    rng = np.random.default_rng([SEED, 15000])
+    bench_jobs = []
+    for n in BENCH_CBS_SIZES:
+        x = rng.normal(0.0, 0.1, n)
+        x[n // 3: n // 3 + n // 20] += 0.3
+        bench_jobs.append((x, rng.uniform(0.5, 1.5, n)))
+    bench_salts = [cbs._job_salt(x, w) for x, w in bench_jobs]
+    bench_items = [cbs._Item(ji, 0, len(x)) for ji, (x, _) in enumerate(bench_jobs)]
+    first = groups[0]
+    exact = next(g for g in groups if g[0] == (2048, "exact"))
+    shapes = [("t21_first_round", jobs, salts, first),
+              ("exact_2048", jobs, salts, exact),
+              ("bench_round", bench_jobs, bench_salts,
+               ((cbs._bucket(max(BENCH_CBS_SIZES)), "thin"), bench_items))]
+    records = {"cbs_arc_max": [], "cbs_arc_argmax": [], "cbs_keys": []}
+    problems = []
+    b = max(64, cfg.perm_batch)
+    for name, sj, ss, ((n_pad, mode), items) in shapes:
+        items = items[: cfg.seg_batch]
+        active = list(range(len(items)))
+        counts = cbs._alloc_rows(b, active, [cfg.nperm] * len(items))
+        seg, words = cbs._round_rows(items, active, counts, ss, device)
+        w_seg, wx_seg, n_seg = cbs._seg_tables(items, sj, n_pad, device)
+        n_rows = n_seg[seg]
+        key = cbs.prng_key(cfg.seed)
+        keys = cbs.perm_keys(key, *words, n_rows, n_pad)
+        keys_plain = cbs.perm_keys_reference(key, *words, n_rows, n_pad)
+        sizes = n_rows.cpu().numpy()
+        keys_err = int((keys - keys_plain).abs().max())
+        records["cbs_keys"].append({
+            "shape": name, "rows": len(sizes), "n_pad": n_pad,
+            "equal": keys_err == 0, "max_abs_err": keys_err,
+            "ms": cuda_ms(lambda: cbs.perm_keys(key, *words, n_rows, n_pad)),
+            "plain_ms": cuda_ms(lambda: cbs.perm_keys_reference(
+                key, *words, n_rows, n_pad)),
+            **_keys_bound(sizes, n_pad)})
+        w_p, wx_p = cbs.shuffle_rows(keys, w_seg[seg], wx_seg[seg])
+        rows = (torch.cat([w_seg, w_p]), torch.cat([wx_seg, wx_p]),
+                torch.cat([n_seg, n_rows]))
+        del keys, keys_plain, w_p, wx_p
+        lengths = cbs._lengths_tensor(n_pad, cfg, mode, device)
+        arc_args = (*rows, lengths, cfg.min_width, cfg.kmax)
+        got = cbs.max_t_rows(*arc_args)
+        want = cbs.max_t_rows_reference(*arc_args)
+        close, bits, err = _nan_equal(got, want)
+        s = len(items)
+        ex = [np.bincount(seg.cpu().numpy(), minlength=s,
+                          weights=(t[s:] >= t[:s][seg]).double().cpu().numpy()
+                          ).astype(int).tolist() for t in (got, want)]
+        records["cbs_arc_max"].append({
+            "shape": name, "rows": len(sizes) + s, "n_pad": n_pad, "mode": mode,
+            "equal": close, "bit_equal": bits, "max_abs_err": err,
+            "exceed": ex[0], "exceed_equal": ex[0] == ex[1],
+            "ms": cuda_ms(lambda: cbs.max_t_rows(*arc_args)),
+            "plain_ms": cuda_ms(lambda: cbs.max_t_rows_reference(*arc_args)),
+            **_arc_bound(np.concatenate([n_seg.cpu().numpy(), sizes]), n_pad,
+                         lengths.cpu().numpy(), cfg.min_width, cfg.kmax)})
+        if not (records["cbs_keys"][-1]["equal"] and close and ex[0] == ex[1]):
+            problems.append(f"{name}: keys {records['cbs_keys'][-1]['equal']}, "
+                            f"maxima {close}, exceed {ex}")
+        del rows, got, want
+        torch.cuda.empty_cache()
+
+    # The locate scan on every first-level bucket of the sample, timed on
+    # the largest, and on the bench segments.
+    for name, sj, grouped in (("t21_buckets", jobs, groups),
+                              ("bench_segments", bench_jobs,
+                               [((cbs._bucket(max(BENCH_CBS_SIZES)), "thin"),
+                                 bench_items)])):
+        by_pad = {}
+        for (n_pad, _), items in grouped:
+            by_pad.setdefault(n_pad, []).extend(items)
+        equal, err = True, 0
+        for n_pad, items in by_pad.items():
+            for chunk in cbs._chunks(items, cfg.seg_batch):
+                tabs = cbs._seg_tables(chunk, sj, n_pad, device)
+                got = cbs.locate_rows(*tabs, cfg.min_width)
+                want = cbs.locate_rows_reference(*tabs, cfg.min_width)
+                equal = equal and all(torch.equal(g, w) for g, w in zip(got, want))
+                err = max([err] + [int((g - w).abs().max()) for g, w in zip(got, want)])
+        n_pad = max(by_pad)
+        tabs = cbs._seg_tables(by_pad[n_pad][: cfg.seg_batch], sj, n_pad, device)
+        got = cbs.locate_rows(*tabs, cfg.min_width)
+        sizes = tabs[2].cpu().numpy()
+        rec = {"shape": name, "rows": len(sizes), "n_pad": n_pad,
+               "split": [got[0].cpu().tolist(), got[1].cpu().tolist()],
+               "ms": cuda_ms(lambda: cbs.locate_rows(*tabs, cfg.min_width)),
+               "plain_ms": cuda_ms(lambda: cbs.locate_rows_reference(
+                   *tabs, cfg.min_width), reps=1),
+               **_arc_bound(sizes, n_pad, np.arange(n_pad), cfg.min_width, 0,
+                            argmax=True)}
+        rec.update(equal=equal, max_abs_err=err)
+        records["cbs_arc_argmax"].append(rec)
+        if not equal:
+            problems.append(f"{name}: locate (i*, L*) differ from the plain version")
+
+    # The NaN fixtures.
+    nan_fixtures = []
+    for n_pad, mode in ((2048, "exact"), (8192, "thin")):
+        w, wx, n = (torch.as_tensor(a, device=device) for a in cbs_arc_rows(n_pad))
+        lengths = cbs._lengths_tensor(n_pad, cfg, mode, device)
+        got = cbs.max_t_rows(w, wx, n, lengths, cfg.min_width, cfg.kmax)
+        want = cbs.max_t_rows_reference(w, wx, n, lengths, cfg.min_width, cfg.kmax)
+        close, bits, err = _nan_equal(got, want)
+        loc = [torch.equal(g, v) for g, v in zip(cbs.locate_rows(w, wx, n, cfg.min_width),
+                                                cbs.locate_rows_reference(
+                                                    w, wx, n, cfg.min_width))]
+        nan_fixtures.append({"n_pad": n_pad, "mode": mode,
+                             "nan_rows": int(torch.isnan(want).sum()),
+                             "equal": close, "bit_equal": bits, "max_abs_err": err,
+                             "locate_equal": all(loc)})
+        if not (close and all(loc) and int(torch.isnan(want).sum())):
+            problems.append(f"NaN fixture {n_pad} {mode}: {nan_fixtures[-1]}")
+    emit("cbs_kernels", **records, nan_fixtures=nan_fixtures)
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return records
 
 
 def _png_shapes(directory):
@@ -1198,17 +1428,11 @@ def _cbs_round_bound(row_sizes, seg_sizes, n_pad, esz, lengths, cfg):
 
     rows, s = len(row_sizes), len(seg_sizes)
     n_eff = int(np.max(row_sizes))
-    lengths = np.asarray(lengths)
-    lengths = lengths[(lengths >= cfg.min_width) & (lengths <= n_eff - cfg.min_width)]
     nbytes = (2 * s * n_pad * esz + rows * n_pad * 4 + 2 * rows * n_pad * esz
               + 2 * rows * (n_eff + 1) * esz + (rows + s) * esz)
     int_ops = rows * n_pad * (THREEFRY_OPS + 3) + rows * 4 * THREEFRY_OPS
-    arcs = 0
-    for n in np.concatenate([row_sizes, seg_sizes]):
-        ok = lengths[lengths <= n - cfg.min_width]
-        arcs += int(np.sum(n - ok + 1))
-        ks = np.arange(cfg.min_width, min(cfg.kmax, n - cfg.min_width) + 1)
-        arcs += int(np.sum(np.maximum(ks - 1, 0)))
+    arcs = _arc_count(np.concatenate([row_sizes, seg_sizes]), lengths,
+                      cfg.min_width, cfg.kmax)
     fp_rate = H100_FP64_FLOPS if esz == 8 else H100_FP32_FLOPS
     times = {"bytes": nbytes / H100_BYTES_PER_S * 1e3,
              "int32": int_ops / H100_INT32_OPS * 1e3,
@@ -1217,6 +1441,57 @@ def _cbs_round_bound(row_sizes, seg_sizes, n_pad, esz, lengths, cfg):
     return {"bytes": nbytes, "int32_ops": int_ops, "fp_ops": arcs * ARC_OPS,
             "fp_bits": 8 * esz, **{f"{k}_ms": v for k, v in times.items()},
             "bound_ms": times[by], "bound_by": "bytes" if by == "bytes" else "operations"}
+
+
+def _arc_count(row_sizes, lengths, min_width, kmax):
+    """Valid arcs of rows of true sizes ``row_sizes``: every window arc of
+    ``lengths`` and every wrap arc up to ``kmax`` (as ops/cbs.py counts
+    them valid)."""
+    import numpy as np
+
+    lengths = np.asarray(lengths)
+    lengths = lengths[lengths >= min_width]
+    arcs = 0
+    sizes, reps = np.unique(np.asarray(row_sizes), return_counts=True)
+    for n, k in zip(sizes, reps):
+        ok = lengths[lengths <= n - min_width]
+        ks = np.arange(min_width, min(kmax, n - min_width) + 1)
+        arcs += int(k) * (int(np.sum(n - ok + 1)) + int(np.sum(np.maximum(ks - 1, 0))))
+    return arcs
+
+
+def _arc_bound(row_sizes, n_pad, lengths, min_width, kmax, argmax=False):
+    """The least time of one arc kernel call (csrc/cbs_arcs.cu) on rows of
+    true sizes ``row_sizes``: its inputs read once (the two float64
+    cumulative sums [rows, n_pad + 1], the int32 lengths, the int64 sizes)
+    and its outputs written once (a float64 maximum, or two int64 (i*, L*),
+    per row) at the memory rate, against the valid arcs (ARC_OPS each) at
+    the FP64 rate."""
+    rows = len(row_sizes)
+    arcs = _arc_count(row_sizes, lengths, min_width, kmax)
+    nbytes = 2 * rows * (n_pad + 1) * 8 + len(lengths) * 4 + rows * 8 + rows * (
+        16 if argmax else 8)
+    ops_ms = arcs * ARC_OPS / H100_FP64_FLOPS * 1e3
+    bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+    return {"arcs": arcs, "bytes": nbytes, "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def _keys_bound(row_sizes, n_pad):
+    """The least time of one key kernel call (csrc/cbs_keys.cu): rows x
+    n_pad int64 keys written and five int64 words per row read, against a
+    Threefry block and 3 more operations per real slot, one per padding
+    slot and four Threefry blocks per row at the INT32 rate."""
+    import numpy as np
+
+    rows = len(row_sizes)
+    real = int(np.minimum(np.asarray(row_sizes), n_pad).sum())
+    ops = (real * (THREEFRY_OPS + 3) + (rows * n_pad - real)
+           + rows * 4 * THREEFRY_OPS)
+    nbytes = rows * n_pad * 8 + rows * 5 * 8
+    ops_ms, bytes_ms = ops / H100_INT32_OPS * 1e3, nbytes / H100_BYTES_PER_S * 1e3
+    return {"int32_ops": ops, "bytes": nbytes, "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
 def a_pass(samples, ref, device, binsize=BINSIZE):
@@ -1296,6 +1571,63 @@ def k2_edge_cases(seed=SEED):
         case("short_pool", shuffled([rng.normal(0.0, 1.0, 50), np.full(pool - 50, np.inf)])),
         case("k_equals_pool", rng.normal(0.0, 1.0, (rows, pool)), k=pool),
     ]
+
+
+def cbs_arc_rows(n_pad, seed=SEED, min_width=2):
+    """Rows for the CBS arc kernels' checks as numpy arrays (w, wx float64
+    [rows, n_pad], zero past each row's size; n int64 [rows]):
+
+    * random rows (weights in [0.5, 1.5), values with a step) at sizes
+      n_pad, random ones, 0, 1, 2 * min_width - 1 (no valid arc) and
+      2 * min_width (one valid length);
+    * ``zero_run``: three zero-weight slots, whose short arcs are 0/0 = NaN;
+    * ``inner_block``: weight only on a middle block, so arcs around it
+      have w0 = 0 and a NaN |T|;
+    * ``nan_length``: a spike on the first two slots and two zero-weight
+      slots further on, so the spike's length holds a NaN arc and drops out
+      of the locate scan whole;
+    * ties: a repeated random row, a flat row (every |T| is 0) and a row
+      whose two equal bumps give equal maxima at two starts.
+    """
+    import numpy as np
+
+    rng = np.random.default_rng([seed, n_pad])
+    sizes = [n_pad, int(rng.integers(1, n_pad + 1)), int(rng.integers(1, n_pad + 1)),
+             0, 1, 2 * min_width - 1, 2 * min_width]
+    rows = []
+
+    def random_row(n):
+        w = rng.uniform(0.5, 1.5, n)
+        x = rng.normal(0.0, 1.0, n)
+        x[n // 3:] += 1.5
+        return w, x
+
+    for n in sizes:
+        rows.append(random_row(min(n, n_pad)))
+    n = n_pad
+    w, x = random_row(n)
+    w[n // 2: n // 2 + 3] = 0.0
+    rows.append((w, x))  # zero_run
+    w = np.zeros(n)
+    w[n // 4: n // 4 + max(1, n // 4)] = 1.0
+    rows.append((w, rng.normal(0.0, 1.0, n)))  # inner_block
+    w, x = np.ones(n), rng.normal(0.0, 0.1, n)
+    x[:2] += 50.0
+    w[min(5, n - 2): min(7, n)] = 0.0
+    rows.append((w, x))  # nan_length
+    rows.append(rows[1])  # a repeated row
+    rows.append((np.ones(n), np.full(n, 0.25)))  # flat
+    x = np.zeros(n)
+    x[1:3] = x[n - 3: n - 1] = 1.0
+    rows.append((np.ones(n), x))  # two equal bumps
+    w_all = np.zeros((len(rows), n_pad))
+    wx_all = np.zeros((len(rows), n_pad))
+    sizes = np.zeros(len(rows), dtype=np.int64)
+    for r, (w, x) in enumerate(rows):
+        w_all[r, : len(w)] = w
+        wx_all[r, : len(w)] = w * x
+        sizes[r] = len(w)
+    return w_all, wx_all, sizes
 
 
 def _bound(ops, nbytes):
@@ -2220,6 +2552,11 @@ def phase_trace(files, ref, t21, plate, device):
     for call in ("predict", "predict_batch"):
         if "predict.cbs" not in traces["main", call]:
             problems.append(f"no predict.cbs trace from {call}")
+            continue
+        cbs_stage = {"predict.cbs": traces["main", call]["predict.cbs"]}
+        for name in CBS_TRACE_KERNELS:
+            if not _kernel_events(cbs_stage, name):
+                problems.append(f"no {name} event in {call}'s predict.cbs trace")
 
     torch.cuda.empty_cache()
     bench_root = os.path.join(root, "bench_cohort")
@@ -2318,18 +2655,25 @@ def main():
 
     knn_cuda.reset_launch_counts()
     cbs.reset_round_counts()
+    cbs.reset_launch_counts()
     ref, newref_record = phase_newref(files)
     predict_record = phase_predict(ref, t21, "case_t21", want_gain_chr="21",
                                    check_dispatch=True)
     phase_predict(ref, euploid, "case_euploid", want_gain_chr=None)
     launches = dict(knn_cuda.LAUNCHES)
     rounds = dict(cbs.ROUNDS)
+    cbs_launches = dict(cbs.LAUNCHES)
     for name, count in launches.items():
         if count < 1:
             raise AssertionError(f"kernel {name} was not launched on the main path")
-    emit("cbs_rounds", **rounds)
+    emit("cbs_rounds", **rounds, launches=cbs_launches)
     if rounds["device"] < 1 or rounds["host"]:
         raise AssertionError(f"predict CBS rounds {rounds}: not the device stream")
+    # Both samples' segments stay whole at alpha 1e-4, so only the plate
+    # (predict-batch, below) locates a split.
+    for name in ("cbs_arc_max", "cbs_keys"):
+        if cbs_launches[name] < 1:
+            raise AssertionError(f"kernel {name} was not launched by predict")
     warm = {call: {k: v for k, v in record["stages"].items()
                    if k.startswith("warmup.")}
             for call, record in (("newref", newref_record),
@@ -2341,8 +2685,9 @@ def main():
         raise AssertionError(f"warm-up stages missing: {sorted(missing)}")
     phase_cold(files, t21, ref, {"newref": newref_record, "predict": predict_record})
 
-    phase_predict_batch(ref, plate, os.path.join(WORK, "case_t21"), device)
-    phase_cbs_stream(ref, t21, device)
+    batch_launches = phase_predict_batch(ref, plate, os.path.join(WORK, "case_t21"),
+                                         device)
+    cbs_records = phase_cbs_stream(ref, t21, device)
     phase_plots(ref, t21, plate, files, device)
     torch.cuda.empty_cache()
     ref_a, ml, corrected, _ = a_pass(samples, ref, device)
@@ -2378,6 +2723,19 @@ def main():
          "bench_shape": bench["knn_topk"]["bench"],
          "ptxas": ptxas.get("knn_topk.cu")},
     ]
+    for name, source, replaces in (
+            ("cbs_arc_max", "cbs_arcs.cu", "wisecondorx_tpu/ops/cbs.py:282"),
+            ("cbs_arc_argmax", "cbs_arcs.cu", "wisecondorx_tpu/ops/cbs.py:309"),
+            ("cbs_keys", "cbs_keys.cu", "wisecondorx_tpu/ops/cbs.py:377")):
+        first = cbs_records[name][0]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"wisecondorx_tpu_torch/csrc/{source}", "replaces": replaces,
+            "launches": batch_launches[name], "main_path_launches": cbs_launches[name],
+            "max_abs_err": first["max_abs_err"], "ms": first["ms"],
+            "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
+            "bound_by": first["bound_by"], "library_ms": None,
+            "shapes": cbs_records[name], "ptxas": ptxas.get(source)})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

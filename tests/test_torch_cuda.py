@@ -261,3 +261,101 @@ def test_warmup_warms_every_visible_card_apart_from_the_counters(dev, monkeypatc
     monkeypatch.setattr(_build, "build", no_nvcc)
     with pytest.raises(RuntimeError, match="nvcc failed: planted"):
         warmup.start_warmup(devices[:1]).result()
+
+
+def _same_or_nan(got, want):
+    """Equal NaN and -inf positions; the rest to rtol 1e-12 (bit for bit
+    is what the kernel's IEEE operations aim at, chip_smoke.py reports
+    it)."""
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_array_equal(np.isneginf(got), np.isneginf(want))
+    np.testing.assert_allclose(got, want, rtol=1e-12)
+
+
+@pytest.mark.parametrize("kmax", [0, 25])
+@pytest.mark.parametrize("n_pad,mode", [
+    (p, m) for p in (8, 32, 128, 2048) for m in ("exact", "thin", "short")
+] + [(32768, "thin"), (32768, "short")])
+def test_cbs_arc_max_equals_plain_version(dev, n_pad, mode, kmax):
+    from wisecondorx_tpu_torch.ops import cbs
+
+    rows = [torch.as_tensor(a, device=dev) for a in chip_smoke.cbs_arc_rows(n_pad)]
+    lengths = cbs._lengths_tensor(n_pad, cbs.CBSConfig(kmax=kmax), mode, dev)
+    cbs.reset_launch_counts()
+    got = cbs.max_t_rows(*rows, lengths, 2, kmax)
+    assert cbs.LAUNCHES["cbs_arc_max"] == 1
+    want = cbs.max_t_rows_reference(*rows, lengths, 2, kmax)
+    torch.cuda.synchronize()
+    _same_or_nan(got, want)
+
+
+@pytest.mark.parametrize("n_pad", [8, 32, 128, 2048])
+def test_cbs_locate_equals_plain_version(dev, n_pad):
+    from wisecondorx_tpu_torch.ops import cbs
+
+    rows = [torch.as_tensor(a, device=dev) for a in chip_smoke.cbs_arc_rows(n_pad)]
+    cbs.reset_launch_counts()
+    got = cbs.locate_rows(*rows, 2)
+    assert cbs.LAUNCHES["cbs_arc_argmax"] == 1
+    want = cbs.locate_rows_reference(*rows, 2)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("rows,n_pad", [(1, 8), (37, 300), (1026, 8192)])
+def test_cbs_keys_bit_equal_to_plain_version(dev, rows, n_pad):
+    from wisecondorx_tpu_torch.ops import cbs
+
+    rng = np.random.default_rng(rows)
+    words = [torch.as_tensor(rng.integers(-2**40, 2**40, rows), device=dev)
+             for _ in range(4)]
+    n_rows = torch.as_tensor(rng.integers(0, n_pad + 1, rows), device=dev)
+    for seed in (0, 2**33 + 5):
+        key = cbs.prng_key(seed)
+        cbs.reset_launch_counts()
+        got = cbs.perm_keys(key, *words, n_rows, n_pad)
+        assert cbs.LAUNCHES["cbs_keys"] == 1
+        assert torch.equal(got, cbs.perm_keys_reference(key, *words, n_rows, n_pad))
+
+
+def test_cbs_wrappers_reject_what_the_kernels_do_not_take(dev):
+    from wisecondorx_tpu_torch.ops import cbs
+
+    w, wx, n = (torch.as_tensor(a, device=dev) for a in chip_smoke.cbs_arc_rows(32))
+    lengths = torch.arange(32, device=dev)
+    with pytest.raises(TypeError):  # int64 lengths: the kernel takes int32
+        cbs.max_t_rows(w, wx, n, lengths, 2, 25)
+    with pytest.raises(TypeError):
+        cbs.max_t_rows(w.float(), wx.float(), n, lengths.int(), 2, 25)
+    with pytest.raises(ValueError):
+        cbs.locate_rows(w, wx, n[:-1], 2)
+    with pytest.raises(TypeError):
+        cbs.perm_keys(cbs.prng_key(0), *([n.int()] * 4), n, 32)
+
+
+def test_exec_cbs_kernels_equal_the_plain_route(dev, monkeypatch):
+    """Whole CBS runs on the card (device permutation stream, perm and
+    hybrid): the kernels' segments equal those of the plain versions run on
+    the same CUDA tensors, and every kernel was launched."""
+    from wisecondorx_tpu_torch.ops import cbs
+
+    rng = np.random.default_rng(3)
+    rs, ws = [], []
+    for c in range(6):
+        n = 3000 if c == 0 else int(rng.integers(100, 600))
+        y = rng.normal(0, 0.1, n)
+        y[n // 3: n // 2] += 0.6
+        rs.append(y)
+        ws.append(rng.uniform(0.5, 1.5, n))
+    rs += [np.zeros(5)] * 17  # all-NA chromosomes: no CBS job
+    ws += [np.ones(5)] * 17
+    for p_method in ("perm", "hybrid"):
+        cfg = cbs.CBSConfig(alpha=1e-2, nperm=300, seed=0, p_method=p_method)
+        cbs.reset_launch_counts()
+        got = cbs.exec_cbs(rs, ws, "F", 100000, cfg, dev)
+        assert min(cbs.LAUNCHES.values()) > 0, cbs.LAUNCHES
+        with monkeypatch.context() as m:
+            m.setattr(cbs, "_on_card", lambda t: False)
+            want = cbs.exec_cbs(rs, ws, "F", 100000, cfg, dev)
+        assert got == want and len(got) > 6

@@ -96,6 +96,19 @@ def build() -> Path:
     return out
 
 
+def check_tensor(t, name: str, dtype, shape, device) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device``: what a kernel's C entry point takes."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
 def load() -> ctypes.CDLL:
     """Build if needed and load the kernel library (once per process)."""
     global _lib
@@ -103,15 +116,24 @@ def load() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            u = ctypes.c_uint32
             lib.wcx_knn_bucket.argtypes = [
                 p, p, p, p, p, i, p, p, p, i, i, i, f, i, p, p, p, p,
             ]
             lib.wcx_knn_bucket.restype = i
             lib.wcx_knn_topk.argtypes = [p, p, p, i, i, i, i, p, p, p, p]
             lib.wcx_knn_topk.restype = i
+            lib.wcx_cbs_arc_max.argtypes = [p, p, p, i, i, p, i, i, i, i, p, p, p]
+            lib.wcx_cbs_arc_max.restype = i
+            lib.wcx_cbs_arc_argmax.argtypes = [
+                p, p, p, i, i, p, i, i, i, p, p, p, p, p, p,
+            ]
+            lib.wcx_cbs_arc_argmax.restype = i
+            lib.wcx_cbs_keys.argtypes = [u, u, p, p, p, p, p, i, i, p, p]
+            lib.wcx_cbs_keys.restype = i
             for name in ("wcx_knn_bucket_depth", "wcx_knn_bucket_col_tile",
                          "wcx_knn_bucket_k_chunk", "wcx_knn_bucket_resident_s_pad",
-                         "wcx_knn_topk_pool_max"):
+                         "wcx_knn_topk_pool_max", "wcx_cbs_arc_stage_max"):
                 getattr(lib, name).argtypes = []
                 getattr(lib, name).restype = i
             _lib = lib

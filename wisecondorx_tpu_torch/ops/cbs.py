@@ -11,17 +11,26 @@ the segment's content salt, its lo/hi, the draw index), so a segment's
 draws do not depend on how segments are batched:
 
 * the device stream (on CUDA): :func:`perm_round_device` makes the sort
-  keys of a whole round with Threefry-2x32 in plain torch integer ops,
-  bit-equal to ``jax.random`` (``fold_in`` over the four key words, then
-  ``bits``), so the decisions equal the JAX package's accelerator path;
+  keys of a whole round with Threefry-2x32, bit-equal to ``jax.random``
+  (``fold_in`` over the four key words, then ``bits``), so the decisions
+  equal the JAX package's accelerator path;
 * the host stream (on the CPU): draw ``d`` is
   ``np.random.default_rng([seed, salt, lo, hi, d]).permutation(n)``, so
   the decisions equal the JAX package's CPU run.
+
+Kernels: on a CUDA tensor :func:`perm_keys` launches csrc/cbs_keys.cu and
+:func:`max_t_rows` / :func:`locate_rows` launch csrc/cbs_arcs.cu (the arc
+statistic, fused: no [rows, lengths, n] block is written); on a CPU tensor
+each takes its plain PyTorch version (:func:`perm_keys_reference`,
+:func:`max_t_rows_reference`, :func:`locate_rows_reference`), which runs
+on any device.  There is no fallback: on CUDA a kernel that does not
+build or launch raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 import zlib
 
 import numpy as np
@@ -66,6 +75,30 @@ def reset_round_counts() -> None:
         ROUNDS[key] = 0
 
 
+#: Launches of each CBS kernel since the last :func:`reset_launch_counts`
+#: (``cbs_arc_max`` and ``cbs_arc_argmax`` are csrc/cbs_arcs.cu's two
+#: entry points).
+LAUNCHES = {"cbs_arc_max": 0, "cbs_arc_argmax": 0, "cbs_keys": 0}
+_count_lock = threading.Lock()  # predict-batch segments on several devices
+
+
+def reset_launch_counts() -> None:
+    with _count_lock:
+        for key in LAUNCHES:
+            LAUNCHES[key] = 0
+
+
+def _count_launch(name: str) -> None:
+    with _count_lock:
+        LAUNCHES[name] += 1
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    """Whether a wrapper launches its kernel for ``t`` (a CUDA tensor) or
+    takes the plain version (a CPU tensor)."""
+    return t.is_cuda
+
+
 def _bucket(n: int) -> int:
     """Padded segment size: x4 steps up to 2048, x2 above."""
     p = 8
@@ -93,6 +126,13 @@ def _group_lengths(n_pad: int, cfg: CBSConfig, mode: str) -> np.ndarray:
     if mode == "exact":
         return np.arange(n_pad, dtype=np.int64)
     return _arc_lengths(n_pad, cfg, short_only=(mode == "short"))
+
+
+def _lengths_tensor(n_pad: int, cfg: CBSConfig, mode: str, device):
+    """:func:`_group_lengths` as an int32 tensor on ``device`` (what the
+    arc kernel takes), converted once on the host."""
+    return torch.as_tensor(_group_lengths(n_pad, cfg, mode).astype(np.int32),
+                           device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -151,17 +191,48 @@ def _col(k):
     return k[:, None] if torch.is_tensor(k) else k
 
 
-def perm_keys(base_key, row_salt, row_lo, row_hi, row_draw, n_rows,
-              n_pad: int):
-    """Sort keys of a round's permutation rows, [B, n_pad] int64: random
-    31-bit keys on a row's real slots, ``0x80000000 | slot`` on its padding
-    (which then sorts to the tail in slot order)."""
+def perm_keys_reference(base_key, row_salt, row_lo, row_hi, row_draw,
+                        n_rows, n_pad: int):
+    """Plain PyTorch version of :func:`perm_keys` (any device)."""
     k = base_key
     for word in (row_salt, row_lo, row_hi, row_draw):
         k = fold_in(k, word)
     bits = random_bits(k, n_pad) & 0x7FFFFFFF
     idx = torch.arange(n_pad, dtype=torch.int64, device=bits.device)
     return torch.where(idx < n_rows[:, None], bits, 0x80000000 | idx)
+
+
+def perm_keys(base_key, row_salt, row_lo, row_hi, row_draw, n_rows,
+              n_pad: int):
+    """Sort keys of a round's permutation rows, [B, n_pad] int64: random
+    31-bit keys on a row's real slots, ``0x80000000 | slot`` on its padding
+    (which then sorts to the tail in slot order).  ``base_key`` is
+    :func:`prng_key`'s pair; the four key words and ``n_rows`` are [B]
+    int64.  A CUDA tensor launches csrc/cbs_keys.cu, a CPU tensor takes
+    :func:`perm_keys_reference`."""
+    if not _on_card(n_rows):
+        return perm_keys_reference(base_key, row_salt, row_lo, row_hi,
+                                   row_draw, n_rows, n_pad)
+    from wisecondorx_tpu_torch.ops import _build
+
+    lib = _build.load()
+    rows, dev = n_rows.shape[0], n_rows.device
+    words = (row_salt, row_lo, row_hi, row_draw, n_rows)
+    for name, t in zip(("row_salt", "row_lo", "row_hi", "row_draw", "n_rows"),
+                       words):
+        _build.check_tensor(t, name, torch.int64, (rows,), dev)
+    out = torch.empty((rows, n_pad), dtype=torch.int64, device=dev)
+    if rows == 0 or n_pad == 0:
+        return out
+    err = lib.wcx_cbs_keys(
+        int(base_key[0]) & _M32, int(base_key[1]) & _M32,
+        *(t.data_ptr() for t in words), rows, n_pad, out.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err:
+        raise RuntimeError(f"cbs_keys launch failed: CUDA error {err}")
+    _count_launch("cbs_keys")
+    return out
 
 
 def shuffle_rows(keys, w_rows, wx_rows):
@@ -174,11 +245,14 @@ def shuffle_rows(keys, w_rows, wx_rows):
 
 
 # ---------------------------------------------------------------------------
-# Statistic kernels (torch, any device)
+# The arc statistic: kernels (csrc/cbs_arcs.cu) and plain versions
 # ---------------------------------------------------------------------------
 
 
 def _row_cumsums(w_rows, wx_rows):
+    """Zero-prefixed cumulative sums [B, n_pad + 1] of whole rows, shared
+    by the kernels and the plain versions, so that on the card both start
+    from the same float64 sums."""
     zero = torch.zeros((w_rows.shape[0], 1), dtype=w_rows.dtype,
                        device=w_rows.device)
     return (torch.cat([zero, torch.cumsum(w_rows, dim=1)], dim=1),
@@ -216,15 +290,15 @@ def _tstat_block(cw, cwx, n_col, lengths, min_width):
     return torch.where(valid, torch.abs(t), -torch.inf)
 
 
-def _trimmed(w_rows, wx_rows, n_rows, lengths, min_width):
+def _trimmed(cw, cwx, n_rows, lengths, min_width):
     """Cumulative sums cut to the longest true row, and the lengths that
     can be valid for some row.  Every arc dropped here is invalid for every
     row, so the maxima (and their first positions) are unchanged; the
-    padded tail of a size bucket costs nothing."""
+    padded tail of a size bucket costs nothing.  Reads the longest row
+    back to the host."""
     n_eff = int(n_rows.max()) if n_rows.numel() else 0
-    cw, cwx = _row_cumsums(w_rows[:, :n_eff], wx_rows[:, :n_eff])
     keep = (lengths >= min_width) & (lengths <= n_eff - min_width)
-    return cw, cwx, lengths[keep]
+    return cw[:, : n_eff + 1], cwx[:, : n_eff + 1], lengths[keep]
 
 
 def _wrap_max(cw, cwx, n_col, kmax: int, min_width: int):
@@ -258,11 +332,12 @@ def _wrap_max(cw, cwx, n_col, kmax: int, min_width: int):
     return t.reshape(b, -1).amax(dim=1)
 
 
-def max_t_rows(w_rows, wx_rows, n_rows, lengths, min_width: int, kmax: int):
-    """Max |T| per row over the window arcs of ``lengths`` plus the wrap
-    arcs of circular length <= kmax.  ``w_rows``/``wx_rows`` [B, n_pad]
-    (zero past each row's true size ``n_rows[b]``)."""
-    cw, cwx, lengths = _trimmed(w_rows, wx_rows, n_rows, lengths, min_width)
+def max_t_rows_reference(w_rows, wx_rows, n_rows, lengths, min_width: int,
+                         kmax: int):
+    """Plain PyTorch version of :func:`max_t_rows` (any device): [B, G,
+    n + 1] blocks of |T| written out and reduced."""
+    cw, cwx = _row_cumsums(w_rows, wx_rows)
+    cw, cwx, lengths = _trimmed(cw, cwx, n_rows, lengths, min_width)
     n_col = n_rows.reshape(-1, 1)
     best = torch.full((cw.shape[0],), -torch.inf, dtype=cw.dtype,
                       device=cw.device)
@@ -275,11 +350,11 @@ def max_t_rows(w_rows, wx_rows, n_rows, lengths, min_width: int, kmax: int):
     return best
 
 
-def locate_rows(w_seg, wx_seg, n_seg, min_width: int):
-    """Exact scan over every window length per segment: (i*, L*) [S] of
-    the max |T|, ties to the shortest arc and then the smallest start."""
+def locate_rows_reference(w_seg, wx_seg, n_seg, min_width: int):
+    """Plain PyTorch version of :func:`locate_rows` (any device)."""
     lengths = torch.arange(w_seg.shape[1], device=w_seg.device)
-    cw, cwx, lengths = _trimmed(w_seg, wx_seg, n_seg, lengths, min_width)
+    cw, cwx = _row_cumsums(w_seg, wx_seg)
+    cw, cwx, lengths = _trimmed(cw, cwx, n_seg, lengths, min_width)
     n_pad = cw.shape[1] - 1
     n_col = n_seg.reshape(-1, 1)
     rows = cw.shape[0]
@@ -302,6 +377,102 @@ def locate_rows(w_seg, wx_seg, n_seg, min_width: int):
         best_i = torch.where(better, first_i.gather(1, first_g[:, None])[:, 0],
                              best_i)
         best_l = torch.where(better, lengths[a:b][first_g], best_l)
+    return best_i, best_l
+
+
+#: CTAs an arc kernel launch aims at: a row's lengths are dealt out over
+#: enough chunks that a call with few rows (the locate scan: at most
+#: ``seg_batch`` segments) still spreads over the card.
+ARC_TARGET_CTAS = 2048
+
+
+def arc_chunks(rows: int, n_lengths: int, stage_max: int) -> int:
+    """Chunks per row of the arc kernels' grid: about
+    ``ARC_TARGET_CTAS`` blocks in all, at least 8 lengths (one per warp)
+    per chunk where there are that many, and at most ``stage_max`` (what a
+    chunk stages in shared memory)."""
+    want = -(-ARC_TARGET_CTAS // max(rows, 1))
+    most = max(1, n_lengths // 8)
+    return max(-(-n_lengths // stage_max), min(want, most))
+
+
+def _arc_launch_args(w_rows, wx_rows, n_rows, lengths, lib):
+    """Checks what the arc kernels take; returns (cw, cwx, chunks)."""
+    from wisecondorx_tpu_torch.ops import _build
+
+    rows, n_pad = w_rows.shape
+    dev = w_rows.device
+    for name, t in (("w_rows", w_rows), ("wx_rows", wx_rows)):
+        _build.check_tensor(t, name, torch.float64, (rows, n_pad), dev)
+    _build.check_tensor(n_rows, "n_rows", torch.int64, (rows,), dev)
+    _build.check_tensor(lengths, "lengths", torch.int32, (lengths.shape[0],), dev)
+    cw, cwx = _row_cumsums(w_rows, wx_rows)
+    return cw, cwx, arc_chunks(rows, lengths.shape[0], lib.wcx_cbs_arc_stage_max())
+
+
+def max_t_rows(w_rows, wx_rows, n_rows, lengths, min_width: int, kmax: int):
+    """Max |T| per row over the window arcs of ``lengths`` plus the wrap
+    arcs of circular length <= kmax; -inf where no arc is valid, NaN where
+    a valid arc is NaN.  ``w_rows``/``wx_rows`` [B, n_pad] float64 (zero
+    past each row's true size ``n_rows[b]``, int64).  A CUDA tensor
+    launches csrc/cbs_arcs.cu (``lengths`` int32 there; no host sync), a
+    CPU tensor takes :func:`max_t_rows_reference`."""
+    if not _on_card(w_rows):
+        return max_t_rows_reference(w_rows, wx_rows, n_rows, lengths,
+                                    min_width, kmax)
+    from wisecondorx_tpu_torch.ops import _build
+
+    lib = _build.load()
+    cw, cwx, chunks = _arc_launch_args(w_rows, wx_rows, n_rows, lengths, lib)
+    rows, n_pad = w_rows.shape
+    out = torch.empty(rows, dtype=torch.float64, device=w_rows.device)
+    if rows == 0:
+        return out
+    partial = torch.empty(rows * chunks, dtype=torch.float64,
+                          device=w_rows.device)
+    err = lib.wcx_cbs_arc_max(
+        cw.data_ptr(), cwx.data_ptr(), n_rows.data_ptr(), rows, n_pad,
+        lengths.data_ptr(), lengths.shape[0], int(min_width), int(kmax),
+        chunks, partial.data_ptr(), out.data_ptr(),
+        torch.cuda.current_stream(w_rows.device).cuda_stream,
+    )
+    if err:
+        raise RuntimeError(f"cbs_arc_max launch failed: CUDA error {err}")
+    _count_launch("cbs_arc_max")
+    return out
+
+
+def locate_rows(w_seg, wx_seg, n_seg, min_width: int):
+    """Exact scan over every window length per segment: (i*, L*) [S] int64
+    of the max |T|, ties to the shortest arc and then the smallest start;
+    a length with a NaN arc never wins; (0, 0) where no arc is valid.  A
+    CUDA tensor launches csrc/cbs_arcs.cu, a CPU tensor takes
+    :func:`locate_rows_reference`."""
+    if not _on_card(w_seg):
+        return locate_rows_reference(w_seg, wx_seg, n_seg, min_width)
+    from wisecondorx_tpu_torch.ops import _build
+
+    lib = _build.load()
+    rows, n_pad = w_seg.shape
+    dev = w_seg.device
+    lengths = torch.arange(n_pad, dtype=torch.int32, device=dev)
+    cw, cwx, chunks = _arc_launch_args(w_seg, wx_seg, n_seg, lengths, lib)
+    best_i = torch.empty(rows, dtype=torch.int64, device=dev)
+    best_l = torch.empty(rows, dtype=torch.int64, device=dev)
+    if rows == 0:
+        return best_i, best_l
+    part_v = torch.empty(rows * chunks, dtype=torch.float64, device=dev)
+    part_g = torch.empty(rows * chunks, dtype=torch.int32, device=dev)
+    part_i = torch.empty(rows * chunks, dtype=torch.int32, device=dev)
+    err = lib.wcx_cbs_arc_argmax(
+        cw.data_ptr(), cwx.data_ptr(), n_seg.data_ptr(), rows, n_pad,
+        lengths.data_ptr(), n_pad, int(min_width), chunks, part_v.data_ptr(),
+        part_g.data_ptr(), part_i.data_ptr(), best_i.data_ptr(),
+        best_l.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err:
+        raise RuntimeError(f"cbs_arc_argmax launch failed: CUDA error {err}")
+    _count_launch("cbs_arc_argmax")
     return best_i, best_l
 
 
@@ -457,13 +628,12 @@ def _decide_group(items, jobs, salts, n_pad, mode, cfg, device,
     first; the device stream takes it from the permutation round itself.
     Hybrid's observed statistic is over the full thinned family, the one
     the analytic tail and the short-arc permutation maxima are held to."""
-    lengths = torch.as_tensor(_group_lengths(n_pad, cfg, mode), device=device)
+    lengths = _lengths_tensor(n_pad, cfg, mode, device)
     budgets = {}
     if cfg.t_threshold is not None or mode == "short" or not device_stream:
         obs_lengths = lengths
         if mode == "short":
-            obs_lengths = torch.as_tensor(_group_lengths(n_pad, cfg, "thin"),
-                                          device=device)
+            obs_lengths = _lengths_tensor(n_pad, cfg, "thin", device)
         for chunk in _chunks(items, cfg.seg_batch):
             w_seg, wx_seg, n_seg = _seg_tables(chunk, jobs, n_pad, device)
             obs = max_t_rows(w_seg, wx_seg, n_seg, obs_lengths,

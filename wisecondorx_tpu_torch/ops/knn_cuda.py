@@ -75,17 +75,6 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape, device):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 # ---------------------------------------------------------------------------
 # K1: distance + bucketed top-M scan
 # ---------------------------------------------------------------------------
@@ -162,13 +151,13 @@ def bucket_scan(rows, rnorm, rchr, rstart, rsize, cand, cnorm, cchr,
         raise ValueError("K1 reads rows and cand with 16-byte copies")
     dev = rows.device
     f32, i32 = torch.float32, torch.int32
-    _check(rows, "rows", f32, (r, s_pad), dev)
-    _check(cand, "cand", f32, (n_pad, s_pad), dev)
+    _build.check_tensor(rows, "rows", f32, (r, s_pad), dev)
+    _build.check_tensor(cand, "cand", f32, (n_pad, s_pad), dev)
     for name, t, dt in (("rnorm", rnorm, f32), ("rchr", rchr, i32),
                         ("rstart", rstart, i32), ("rsize", rsize, i32)):
-        _check(t, name, dt, (r,), dev)
-    _check(cnorm, "cnorm", f32, (n_pad,), dev)
-    _check(cchr, "cchr", i32, (n_pad,), dev)
+        _build.check_tensor(t, name, dt, (r,), dev)
+    _build.check_tensor(cnorm, "cnorm", f32, (n_pad,), dev)
+    _build.check_tensor(cchr, "cchr", i32, (n_pad,), dev)
     vals = torch.empty((r, lanes * depth), dtype=f32, device=dev)
     idx = torch.empty((r, lanes * depth), dtype=i32, device=dev)
     drop = torch.empty((r, lanes), dtype=f32, device=dev)
@@ -233,9 +222,9 @@ def extract_topk(vals, idx, drop, ref_size: int):
     if vals.data_ptr() % 16 or drop.data_ptr() % 16:
         raise ValueError("K2 reads vals and drop with 16-byte loads")
     dev = vals.device
-    _check(vals, "vals", torch.float32, (r, pool), dev)
-    _check(idx, "idx", torch.int32, (r, pool), dev)
-    _check(drop, "drop", torch.float32, (r, lanes), dev)
+    _build.check_tensor(vals, "vals", torch.float32, (r, pool), dev)
+    _build.check_tensor(idx, "idx", torch.int32, (r, pool), dev)
+    _build.check_tensor(drop, "drop", torch.float32, (r, lanes), dev)
     top_v = torch.empty((r, ref_size), dtype=torch.float32, device=dev)
     top_i = torch.empty((r, ref_size), dtype=torch.int32, device=dev)
     flagged = torch.empty(r, dtype=torch.uint8, device=dev)
