@@ -59,10 +59,12 @@ Phases, each printing one JSON line on stdout (logs go to stderr):
    PyTorch versions on the card at the sample's first round (n_pad 8,192,
    thin), its exact-mode bucket (n_pad 2,048) and a seeded bench-shape
    round (two segments of 15 kb chr1 and chr2 sizes, n_pad 32,768): keys
-   bit-equal, maxima bit-equal or within rtol 1e-12 with the same NaN
-   positions, exceed counts equal, (i*, L*) equal on every first-level
-   bucket, the NaN fixtures (:func:`cbs_arc_rows`) too, each timed beside
-   its plain version and its bound; one whole device-stream round
+   bit-equal, maxima bit-equal with the same NaN and -inf positions,
+   exceed counts equal, (i*, L*) equal on every first-level bucket, the NaN
+   fixtures (:func:`cbs_arc_rows`) and the adversarial fixtures
+   (:func:`cbs_adversarial_rows`) too, each timed beside its plain version
+   and its bounds, with the number and share of arcs that took the exact
+   formula past the screen; one whole device-stream round
    (``perm_round_device``) with the kernels and with the plain versions,
    beside its bound (:func:`_cbs_round_bound`); and the sample's CBS time
    with the device stream (kernels, then the plain versions on the card:
@@ -210,6 +212,21 @@ THREEFRY_OPS = 2 + 20 * 3 + 5 * 3
 #: difference, 2 reciprocals, a sum, rsqrt, a product, abs and the
 #: running max.
 ARC_OPS = 14
+#: Floating-point operations of the arc kernels' screen on a staged row
+#: (csrc/cbs_arcs.cu screened_out; its plain version ops/cbs.py
+#: arc_screen_reference), each counted once: the window's weight and
+#: numerator differences, w0, the floor's sum, the square, the right
+#: side's 2 products and the comparison.
+SCREEN_OPS = 8
+#: The same on a row read through L2, where each end's a[e] costs 3 more
+#: (csrc/cbs_arcs.cu screen_a).
+SCREEN_OPS_L2 = SCREEN_OPS + 3
+#: FP64-pipe instructions of abs_t's fast path when the SASS cannot be
+#: read (about 45; phase_build counts them from cuobjdump -sass), and the
+#: H100's FP64 lane-instruction rate: 64 FP64 lanes per SM (Hopper
+#: architecture whitepaper) x 132 SMs x 1.98 GHz boost clock.
+ABS_T_INSTRS = 45
+H100_FP64_INSTRS = 64 * 132 * 1.98e9
 #: The plots phase: the plate samples it runs predict-batch --plot on, and
 #: the pixel sizes of the figures (matplotlib's figsize x dpi).
 PLOT_PLATE = 4
@@ -294,8 +311,9 @@ def phase_device():
 
 def phase_build():
     """Builds the kernels (one nvcc per source, in parallel) and prints each
-    source's ptxas report: registers, shared memory, spills.  Returns the
-    reports by source file name."""
+    source's ptxas report: registers, shared memory, spills; then counts
+    the FP64 instructions of the arc kernels' exact formula and screen
+    (:func:`sass_counts`).  Returns the reports by source file name."""
     from wisecondorx_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
@@ -307,9 +325,87 @@ def phase_build():
                  if "Used" in ln or "spill" in ln]
         ptxas[src] = "; ".join(lines)
         print(f"ptxas {src}: {ptxas[src]}", flush=True)
-    emit("build", seconds=round(time.perf_counter() - t0, 3),
-         library=os.path.relpath(path, REPO), ptxas=ptxas)
+    seconds = round(time.perf_counter() - t0, 3)
+    sass = sass_counts()
+    emit("build", seconds=seconds, library=os.path.relpath(path, REPO),
+         ptxas=ptxas, sass=sass)
     return ptxas
+
+
+SASS_PROBE = r"""// abs_t and the screen of cbs_arcs.cu alone, to count their instructions.
+#include "cbs_arcs.cu"
+
+__global__ void probe_abs_t(const double* in, double* out) {
+  const int k = blockIdx.x * blockDim.x + threadIdx.x;
+  out[k] = abs_t(in[4 * k], in[4 * k + 1], in[4 * k + 2], in[4 * k + 3]);
+}
+
+__global__ void probe_screen(const double* in, int* out) {
+  const int k = blockIdx.x * blockDim.x + threadIdx.x;
+  Row r;
+  r.W = in[0];
+  r.X = in[1];
+  r.F = in[2];
+  out[k] = screened_out(__dsub_rn(in[4 + 4 * k], in[5 + 4 * k]),
+                        __dsub_rn(in[6 + 4 * k], in[7 + 4 * k]), r, in[3]);
+}
+"""
+#: Opcodes that issue to the FP64 pipe.
+FP64_OPCODES = ("DADD", "DMUL", "DFMA", "DSETP", "DSET", "DMNMX",
+                "MUFU.RCP64H", "MUFU.RSQ64H")
+
+
+def sass_counts():
+    """FP64-pipe instructions of csrc/cbs_arcs.cu's abs_t and of its screen
+    (the window differences included), read from ``cuobjdump -sass`` of a
+    probe kernel each (SASS_PROBE, built with the library's flags): on the
+    straight path up to the first EXIT (the divisions' slow paths lie
+    past it) and in the whole function.  Sets ABS_T_INSTRS.  None where
+    the toolkit has no cuobjdump."""
+    global ABS_T_INSTRS
+    import re
+
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    from wisecondorx_tpu_torch.ops import _build
+
+    cuobjdump = os.path.join(CUDA_HOME or "", "bin", "cuobjdump")
+    if not os.path.exists(cuobjdump):
+        return None
+    work = os.path.join(WORK, "sass")
+    os.makedirs(work, exist_ok=True)
+    src, cubin = os.path.join(work, "probe.cu"), os.path.join(work, "probe.cubin")
+    with open(src, "w") as f:
+        f.write(SASS_PROBE)
+    flags = [a for a in _build.NVCC_FLAGS if a not in ("-Xcompiler", "-fPIC",
+                                                       "-Xptxas", "-v")]
+    subprocess.run([_build._nvcc(), *flags, "-cubin", "-I", str(_build.CSRC),
+                    "-o", cubin, src], check=True, capture_output=True, timeout=600)
+    dump = subprocess.run([cuobjdump, "-sass", cubin], check=True,
+                          capture_output=True, text=True, timeout=120).stdout
+    counts, name = {}, None
+    op = re.compile(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)")
+    for line in dump.splitlines():
+        if "Function :" in line:
+            name = next((k for k in ("probe_abs_t", "probe_screen") if k in line), None)
+            if name:
+                counts[name] = {"straight": 0, "all": 0, "exit": False}
+            continue
+        m = op.search(line)
+        if not (name and m):
+            continue
+        c = counts[name]
+        opcode = m.group(1)
+        if opcode == "EXIT":
+            c["exit"] = True
+        elif any(opcode == p or opcode.startswith(p + ".") for p in FP64_OPCODES):
+            c["all"] += 1
+            c["straight"] += not c["exit"]
+    out = {k: {"straight": v["straight"], "all": v["all"]} for k, v in counts.items()}
+    if out.get("probe_abs_t", {}).get("straight"):
+        ABS_T_INSTRS = out["probe_abs_t"]["straight"]
+    print(f"sass FP64 instructions: {out}", flush=True)
+    return out
 
 
 def save_sample(path, sample, binsize=BINSIZE):
@@ -978,7 +1074,7 @@ def phase_cbs_stream(ref, case, device):
     def one_round():
         return cbs.perm_round_device(
             cbs.prng_key(cfg.seed), w_seg, wx_seg, n_seg_t, seg, live, *words,
-            obs0, lengths_t, cfg.min_width, cfg.kmax)
+            obs0, lengths_t, cfg.min_width, cfg.kmax, n_max=int(n_seg.max()))
 
     round_ms = cuda_ms(one_round)
     with plain_cbs():
@@ -1074,20 +1170,25 @@ def _nan_equal(got, want):
 
 def cbs_kernel_checks(jobs, salts, groups, cfg, device):
     """The CBS kernels against their plain versions on the card, each
-    timed beside its plain version and its bound (:func:`_arc_bound`,
-    :func:`_keys_bound`), at three shapes: the trisomy-21 sample's first
+    timed beside its plain version and its bounds (:func:`_arc_bound`,
+    :func:`_keys_bound`; the arc kernels' wrappers also as the kernel alone
+    on precomputed sums, and the torch sums alone), at three shapes: the trisomy-21 sample's first
     round (its first (bucket, mode) group, as the round allots rows), its
     exact-mode group at n_pad 2,048, and a seeded bench-shape round (two
     segments of BENCH_CBS_SIZES bins, 15 kb chr1 and chr2, n_pad 32,768,
-    thin).  Per shape: the keys bit-equal; the round's maxima (observed rows
-    and permuted rows, as ``perm_round_device`` builds them) bit-equal or
-    within rtol 1e-12 with the same NaN and -inf positions, and the exceed
-    counts equal.  The locate scan's (i*, L*) equal on every first-level
-    bucket of the sample (timed on its largest) and on the bench segments;
-    maxima and (i*, L*) equal on the NaN fixtures
-    (:func:`cbs_arc_rows` at n_pad 2,048 exact and 8,192 thin).  Returns
-    {kernel: record} and emits one ``cbs_kernels`` line; fails on any
-    difference."""
+    thin).  The arc kernels get the sums cut to the largest segment, as the
+    main path passes them (staged in shared memory at the first two shapes,
+    read through L2 at the third).  Per shape: the keys bit-equal; the
+    round's maxima (observed rows and permuted rows, as
+    ``perm_round_device`` builds them) bit-equal with the same NaN and -inf
+    positions, and the exceed counts equal; the number and share of arcs
+    that took the exact formula.  The locate scan's (i*, L*) equal on every
+    first-level bucket of the sample (timed on its largest) and on the
+    bench segments.  Maxima bit-equal and (i*, L*) equal on the NaN
+    fixtures (:func:`cbs_arc_rows` at n_pad 2,048 exact and 8,192 thin) and
+    the adversarial fixtures (:func:`cbs_adversarial_rows` at those and at
+    32,768 thin).  Returns {kernel: record} and emits one ``cbs_kernels``
+    line; fails on any difference."""
     import numpy as np
     import torch
 
@@ -1110,6 +1211,12 @@ def cbs_kernel_checks(jobs, salts, groups, cfg, device):
     records = {"cbs_arc_max": [], "cbs_arc_argmax": [], "cbs_keys": []}
     problems = []
     b = max(64, cfg.perm_batch)
+
+    def counted(fn, *args, **kwargs):
+        count = torch.zeros(1, dtype=torch.int64, device=device)
+        out = fn(*args, exact_arcs=count, **kwargs)
+        return out, int(count)
+
     for name, sj, ss, ((n_pad, mode), items) in shapes:
         items = items[: cfg.seg_batch]
         active = list(range(len(items)))
@@ -1134,9 +1241,11 @@ def cbs_kernel_checks(jobs, salts, groups, cfg, device):
                 torch.cat([n_seg, n_rows]))
         del keys, keys_plain, w_p, wx_p
         lengths = cbs._lengths_tensor(n_pad, cfg, mode, device)
+        n_max = max(it.n for it in items)
         arc_args = (*rows, lengths, cfg.min_width, cfg.kmax)
-        got = cbs.max_t_rows(*arc_args)
+        got, exact_arcs = counted(cbs.max_t_rows, *arc_args, n_max=n_max)
         want = cbs.max_t_rows_reference(*arc_args)
+        cw, cwx, _, chunks = cbs._arc_launch_args(*rows, lengths, n_max, None)
         close, bits, err = _nan_equal(got, want)
         s = len(items)
         ex = [np.bincount(seg.cpu().numpy(), minlength=s,
@@ -1144,16 +1253,21 @@ def cbs_kernel_checks(jobs, salts, groups, cfg, device):
                           ).astype(int).tolist() for t in (got, want)]
         records["cbs_arc_max"].append({
             "shape": name, "rows": len(sizes) + s, "n_pad": n_pad, "mode": mode,
+            "width": n_max, "staged": cbs.arc_staged(n_max), "chunks": chunks,
             "equal": close, "bit_equal": bits, "max_abs_err": err,
             "exceed": ex[0], "exceed_equal": ex[0] == ex[1],
-            "ms": cuda_ms(lambda: cbs.max_t_rows(*arc_args)),
+            "ms": cuda_ms(lambda: cbs.max_t_rows(*arc_args, n_max=n_max)),
+            "kernel_ms": cuda_ms(lambda: cbs._arc_max_launch(
+                cw, cwx, rows[2], lengths, cfg.min_width, cfg.kmax, n_max, chunks)),
+            "sums_ms": cuda_ms(lambda: cbs._row_cumsums(rows[0], rows[1], n_max)),
             "plain_ms": cuda_ms(lambda: cbs.max_t_rows_reference(*arc_args)),
             **_arc_bound(np.concatenate([n_seg.cpu().numpy(), sizes]), n_pad,
-                         lengths.cpu().numpy(), cfg.min_width, cfg.kmax)})
-        if not (records["cbs_keys"][-1]["equal"] and close and ex[0] == ex[1]):
+                         lengths.cpu().numpy(), cfg.min_width, cfg.kmax,
+                         exact_arcs=exact_arcs, staged=cbs.arc_staged(n_max))})
+        if not (records["cbs_keys"][-1]["equal"] and bits and ex[0] == ex[1]):
             problems.append(f"{name}: keys {records['cbs_keys'][-1]['equal']}, "
-                            f"maxima {close}, exceed {ex}")
-        del rows, got, want
+                            f"maxima bit-equal {bits}, exceed {ex}")
+        del rows, got, want, cw, cwx
         torch.cuda.empty_cache()
 
     # The locate scan on every first-level bucket of the sample, timed on
@@ -1169,44 +1283,68 @@ def cbs_kernel_checks(jobs, salts, groups, cfg, device):
         for n_pad, items in by_pad.items():
             for chunk in cbs._chunks(items, cfg.seg_batch):
                 tabs = cbs._seg_tables(chunk, sj, n_pad, device)
-                got = cbs.locate_rows(*tabs, cfg.min_width)
+                got = cbs.locate_rows(*tabs, cfg.min_width,
+                                      n_max=max(it.n for it in chunk))
                 want = cbs.locate_rows_reference(*tabs, cfg.min_width)
                 equal = equal and all(torch.equal(g, w) for g, w in zip(got, want))
                 err = max([err] + [int((g - w).abs().max()) for g, w in zip(got, want)])
         n_pad = max(by_pad)
-        tabs = cbs._seg_tables(by_pad[n_pad][: cfg.seg_batch], sj, n_pad, device)
-        got = cbs.locate_rows(*tabs, cfg.min_width)
+        timed = by_pad[n_pad][: cfg.seg_batch]
+        n_max = max(it.n for it in timed)
+        tabs = cbs._seg_tables(timed, sj, n_pad, device)
+        got, exact_arcs = counted(cbs.locate_rows, *tabs, cfg.min_width, n_max=n_max)
         sizes = tabs[2].cpu().numpy()
+        all_lengths = torch.arange(n_max, dtype=torch.int32, device=device)
+        cw, cwx, _, chunks = cbs._arc_launch_args(*tabs, all_lengths, n_max, None)
         rec = {"shape": name, "rows": len(sizes), "n_pad": n_pad,
+               "width": n_max, "staged": cbs.arc_staged(n_max), "chunks": chunks,
                "split": [got[0].cpu().tolist(), got[1].cpu().tolist()],
-               "ms": cuda_ms(lambda: cbs.locate_rows(*tabs, cfg.min_width)),
+               "ms": cuda_ms(lambda: cbs.locate_rows(*tabs, cfg.min_width,
+                                                     n_max=n_max)),
+               "kernel_ms": cuda_ms(lambda: cbs._arc_argmax_launch(
+                   cw, cwx, tabs[2], all_lengths, cfg.min_width, n_max, chunks)),
+               "sums_ms": cuda_ms(lambda: cbs._row_cumsums(tabs[0], tabs[1], n_max)),
                "plain_ms": cuda_ms(lambda: cbs.locate_rows_reference(
                    *tabs, cfg.min_width), reps=1),
                **_arc_bound(sizes, n_pad, np.arange(n_pad), cfg.min_width, 0,
-                            argmax=True)}
+                            argmax=True, exact_arcs=exact_arcs,
+                            staged=cbs.arc_staged(n_max))}
         rec.update(equal=equal, max_abs_err=err)
         records["cbs_arc_argmax"].append(rec)
         if not equal:
             problems.append(f"{name}: locate (i*, L*) differ from the plain version")
 
-    # The NaN fixtures.
-    nan_fixtures = []
-    for n_pad, mode in ((2048, "exact"), (8192, "thin")):
-        w, wx, n = (torch.as_tensor(a, device=device) for a in cbs_arc_rows(n_pad))
-        lengths = cbs._lengths_tensor(n_pad, cfg, mode, device)
-        got = cbs.max_t_rows(w, wx, n, lengths, cfg.min_width, cfg.kmax)
-        want = cbs.max_t_rows_reference(w, wx, n, lengths, cfg.min_width, cfg.kmax)
-        close, bits, err = _nan_equal(got, want)
-        loc = [torch.equal(g, v) for g, v in zip(cbs.locate_rows(w, wx, n, cfg.min_width),
-                                                cbs.locate_rows_reference(
-                                                    w, wx, n, cfg.min_width))]
-        nan_fixtures.append({"n_pad": n_pad, "mode": mode,
-                             "nan_rows": int(torch.isnan(want).sum()),
-                             "equal": close, "bit_equal": bits, "max_abs_err": err,
-                             "locate_equal": all(loc)})
-        if not (close and all(loc) and int(torch.isnan(want).sum())):
-            problems.append(f"NaN fixture {n_pad} {mode}: {nan_fixtures[-1]}")
-    emit("cbs_kernels", **records, nan_fixtures=nan_fixtures)
+    # The NaN and adversarial fixtures.
+    fixtures = {"nan_fixtures": [], "adversarial_fixtures": []}
+    for family, make, cases in (
+            ("nan_fixtures", cbs_arc_rows, ((2048, "exact"), (8192, "thin"))),
+            ("adversarial_fixtures", cbs_adversarial_rows,
+             ((2048, "exact"), (8192, "thin"), (32768, "thin")))):
+        for n_pad, mode in cases:
+            arrays = make(n_pad)
+            n_max = int(arrays[2].max())
+            w, wx, n = (torch.as_tensor(a, device=device) for a in arrays)
+            lengths = cbs._lengths_tensor(n_pad, cfg, mode, device)
+            got, exact_arcs = counted(cbs.max_t_rows, w, wx, n, lengths,
+                                      cfg.min_width, cfg.kmax, n_max=n_max)
+            want = cbs.max_t_rows_reference(w, wx, n, lengths, cfg.min_width, cfg.kmax)
+            close, bits, err = _nan_equal(got, want)
+            loc = [torch.equal(g, v) for g, v in zip(
+                cbs.locate_rows(w, wx, n, cfg.min_width, n_max=n_max),
+                cbs.locate_rows_reference(w, wx, n, cfg.min_width))]
+            rec = {"n_pad": n_pad, "mode": mode, "width": n_max,
+                   "nan_rows": int(torch.isnan(want).sum()),
+                   "equal": close, "bit_equal": bits, "max_abs_err": err,
+                   "locate_equal": all(loc), "exact_arcs": exact_arcs,
+                   "arcs": _arc_count(arrays[2], lengths.cpu().numpy(),
+                                      cfg.min_width, cfg.kmax)}
+            fixtures[family].append(rec)
+            if not (bits and all(loc)) or (family == "nan_fixtures"
+                                           and not rec["nan_rows"]):
+                problems.append(f"{family} {n_pad} {mode}: {rec}")
+            del w, wx, n, got, want
+            torch.cuda.empty_cache()
+    emit("cbs_kernels", **records, **fixtures)
     if problems:
         raise AssertionError("; ".join(problems))
     return records
@@ -1460,21 +1598,34 @@ def _arc_count(row_sizes, lengths, min_width, kmax):
     return arcs
 
 
-def _arc_bound(row_sizes, n_pad, lengths, min_width, kmax, argmax=False):
+def _arc_bound(row_sizes, n_pad, lengths, min_width, kmax, argmax=False,
+               exact_arcs=None, staged=True):
     """The least time of one arc kernel call (csrc/cbs_arcs.cu) on rows of
     true sizes ``row_sizes``: its inputs read once (the two float64
     cumulative sums [rows, n_pad + 1], the int32 lengths, the int64 sizes)
     and its outputs written once (a float64 maximum, or two int64 (i*, L*),
     per row) at the memory rate, against the valid arcs (ARC_OPS each) at
-    the FP64 rate."""
+    the FP64 rate: ``bound_ms``, the yardstick every PR is held to.
+    Beside it, ``screened_ms``: every arc at the screen's SCREEN_OPS
+    (SCREEN_OPS_L2 unless ``staged``) plus the ``exact_arcs`` that took the
+    exact formula at ARC_OPS; and
+    ``abs_t_floor_ms``: every arc at abs_t's ABS_T_INSTRS FP64
+    instructions at the FP64 instruction rate, the floor of a kernel
+    without the screen."""
     rows = len(row_sizes)
     arcs = _arc_count(row_sizes, lengths, min_width, kmax)
     nbytes = 2 * rows * (n_pad + 1) * 8 + len(lengths) * 4 + rows * 8 + rows * (
         16 if argmax else 8)
     ops_ms = arcs * ARC_OPS / H100_FP64_FLOPS * 1e3
     bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
-    return {"arcs": arcs, "bytes": nbytes, "bound_ms": max(ops_ms, bytes_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+    out = {"arcs": arcs, "bytes": nbytes, "bound_ms": max(ops_ms, bytes_ms),
+           "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+           "abs_t_floor_ms": arcs * ABS_T_INSTRS / H100_FP64_INSTRS * 1e3}
+    if exact_arcs is not None:
+        out.update(exact_arcs=exact_arcs, exact_share=exact_arcs / max(arcs, 1),
+                   screened_ms=(arcs * (SCREEN_OPS if staged else SCREEN_OPS_L2)
+                                + exact_arcs * ARC_OPS) / H100_FP64_FLOPS * 1e3)
+    return out
 
 
 def _keys_bound(row_sizes, n_pad):
@@ -1620,6 +1771,13 @@ def cbs_arc_rows(n_pad, seed=SEED, min_width=2):
     x = np.zeros(n)
     x[1:3] = x[n - 3: n - 1] = 1.0
     rows.append((np.ones(n), x))  # two equal bumps
+    return _arc_row_tables(rows, n_pad)
+
+
+def _arc_row_tables(rows, n_pad):
+    """(w, wx float64 [rows, n_pad], n int64 [rows]) of (w, x) rows."""
+    import numpy as np
+
     w_all = np.zeros((len(rows), n_pad))
     wx_all = np.zeros((len(rows), n_pad))
     sizes = np.zeros(len(rows), dtype=np.int64)
@@ -1628,6 +1786,55 @@ def cbs_arc_rows(n_pad, seed=SEED, min_width=2):
         wx_all[r, : len(w)] = w * x
         sizes[r] = len(w)
     return w_all, wx_all, sizes
+
+
+#: The rows of :func:`cbs_adversarial_rows`, in order.
+ADVERSARIAL_ROWS = ("near_flat", "ties", "tiny_weights", "huge_weights",
+                    "huge_values", "tiny_values", "spike", "zero_runs",
+                    "wide_weights", "short_near_flat")
+
+
+def cbs_adversarial_rows(n_pad, seed=SEED):
+    """Rows that push the arc kernels' screen (csrc/cbs_arcs.cu) to its
+    edges, as :func:`cbs_arc_rows` returns them (ADVERSARIAL_ROWS names
+    each):
+
+    * ``near_flat``: values 0.25 plus 1e-14 noise, so every |T| is rounding
+      noise and the absolute floor decides;
+    * ``ties``: values in {0, 1} on a repeating pattern, so many arcs share
+      the maximum exactly;
+    * ``tiny_weights`` / ``huge_weights``: weights near 1e-300 / 1e150
+      (underflow and overflow on the screen's sides: the row guard);
+    * ``huge_values`` / ``tiny_values``: values near 1e150 / 1e-300;
+    * ``spike``: one value of 1e12 among N(0, 0.1) noise;
+    * ``zero_runs``: runs of zero weights (0/0 = NaN arcs);
+    * ``wide_weights``: weights from 1e-12 to 1e12, whose cumulative sums
+      absorb the small ones (window weights of 0, so NaN arcs);
+    * ``short_near_flat``: ``near_flat`` at a random size below n_pad.
+    """
+    import numpy as np
+
+    rng = np.random.default_rng([seed, n_pad, 13])
+    n = n_pad
+    rows = []
+    rows.append((np.ones(n), 0.25 + 1e-14 * rng.normal(0.0, 1.0, n)))
+    pattern = np.array([0.0, 1.0, 1.0, 0.0, 1.0, 0.0, 0.0, 1.0])
+    rows.append((np.ones(n), np.resize(pattern, n)))
+    rows.append((rng.uniform(0.5, 1.5, n) * 1e-300, rng.normal(0.0, 1.0, n)))
+    rows.append((rng.uniform(0.5, 1.5, n) * 1e150, rng.normal(0.0, 1.0, n)))
+    rows.append((rng.uniform(0.5, 1.5, n), rng.normal(0.0, 1.0, n) * 1e150))
+    rows.append((rng.uniform(0.5, 1.5, n), rng.normal(0.0, 1.0, n) * 1e-300))
+    x = rng.normal(0.0, 0.1, n)
+    x[n // 2] = 1e12
+    rows.append((rng.uniform(0.5, 1.5, n), x))
+    w = rng.uniform(0.5, 1.5, n)
+    for start in range(n // 5, n, max(1, n // 3)):
+        w[start: start + 4] = 0.0
+    rows.append((w, rng.normal(0.0, 1.0, n)))
+    rows.append((10.0 ** rng.uniform(-12.0, 12.0, n), rng.normal(0.0, 1.0, n)))
+    k = int(rng.integers(1, n + 1))
+    rows.append((np.ones(k), 0.25 + 1e-14 * rng.normal(0.0, 1.0, k)))
+    return _arc_row_tables(rows, n_pad)
 
 
 def _bound(ops, nbytes):
@@ -2733,6 +2940,7 @@ def main():
             "source": f"wisecondorx_tpu_torch/csrc/{source}", "replaces": replaces,
             "launches": batch_launches[name], "main_path_launches": cbs_launches[name],
             "max_abs_err": first["max_abs_err"], "ms": first["ms"],
+            "kernel_ms": first.get("kernel_ms"), "exact_share": first.get("exact_share"),
             "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
             "bound_by": first["bound_by"], "library_ms": None,
             "shapes": cbs_records[name], "ptxas": ptxas.get(source)})

@@ -264,13 +264,24 @@ def test_warmup_warms_every_visible_card_apart_from_the_counters(dev, monkeypatc
 
 
 def _same_or_nan(got, want):
-    """Equal NaN and -inf positions; the rest to rtol 1e-12 (bit for bit
-    is what the kernel's IEEE operations aim at, chip_smoke.py reports
-    it)."""
+    """Equal NaN and -inf positions, and bit for bit elsewhere (the
+    kernel's IEEE operations on the same sums)."""
     got, want = got.cpu().numpy(), want.cpu().numpy()
     np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
     np.testing.assert_array_equal(np.isneginf(got), np.isneginf(want))
-    np.testing.assert_allclose(got, want, rtol=1e-12)
+    np.testing.assert_array_equal(np.nan_to_num(got).view(np.int64),
+                                  np.nan_to_num(want).view(np.int64))
+
+
+def _arc_rows(dev, n_pad, family="arc_rows", n_max=None):
+    make = (chip_smoke.cbs_arc_rows if family == "arc_rows"
+            else chip_smoke.cbs_adversarial_rows)
+    w, wx, n = make(n_pad)
+    if n_max is not None:  # every row at most n_max long
+        n = np.minimum(n, n_max)
+        cols = np.arange(n_pad)[None, :] < n[:, None]
+        w, wx = np.where(cols, w, 0.0), np.where(cols, wx, 0.0)
+    return [torch.as_tensor(a, device=dev) for a in (w, wx, n)]
 
 
 @pytest.mark.parametrize("kmax", [0, 25])
@@ -280,7 +291,7 @@ def _same_or_nan(got, want):
 def test_cbs_arc_max_equals_plain_version(dev, n_pad, mode, kmax):
     from wisecondorx_tpu_torch.ops import cbs
 
-    rows = [torch.as_tensor(a, device=dev) for a in chip_smoke.cbs_arc_rows(n_pad)]
+    rows = _arc_rows(dev, n_pad)
     lengths = cbs._lengths_tensor(n_pad, cbs.CBSConfig(kmax=kmax), mode, dev)
     cbs.reset_launch_counts()
     got = cbs.max_t_rows(*rows, lengths, 2, kmax)
@@ -294,13 +305,74 @@ def test_cbs_arc_max_equals_plain_version(dev, n_pad, mode, kmax):
 def test_cbs_locate_equals_plain_version(dev, n_pad):
     from wisecondorx_tpu_torch.ops import cbs
 
-    rows = [torch.as_tensor(a, device=dev) for a in chip_smoke.cbs_arc_rows(n_pad)]
+    rows = _arc_rows(dev, n_pad)
     cbs.reset_launch_counts()
     got = cbs.locate_rows(*rows, 2)
     assert cbs.LAUNCHES["cbs_arc_argmax"] == 1
     want = cbs.locate_rows_reference(*rows, 2)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("n_pad,n_max,mode", [
+    (8, None, "exact"), (32, 32, "exact"), (128, 100, "exact"), (2048, 2048, "exact"),
+    (2048, 2048, "thin"), (8192, 8192, "thin"), (32768, None, "thin"),
+])
+def test_cbs_arc_kernels_hold_on_adversarial_rows(dev, n_pad, n_max, mode):
+    """chip_smoke.cbs_adversarial_rows (near-flat rows, exact ties, weights
+    near 1e-300 and 1e150, values near 1e150 and 1e-300, a huge spike,
+    zero-weight runs, absorbed weights): maxima bit-equal and (i*, L*)
+    equal, with the sums cut to n_max (staged in shared memory up to
+    n_pad 8,192, through L2 at 32,768) and the exact-arc counter on."""
+    from wisecondorx_tpu_torch.ops import cbs
+
+    rows = _arc_rows(dev, n_pad, "adversarial", n_max)
+    lengths = cbs._lengths_tensor(n_pad, cbs.CBSConfig(), mode, dev)
+    count = torch.zeros(1, dtype=torch.int64, device=dev)
+    got = cbs.max_t_rows(*rows, lengths, 2, 25, n_max=n_max, exact_arcs=count)
+    _same_or_nan(got, cbs.max_t_rows_reference(*rows, lengths, 2, 25))
+    assert int(count) > 0
+    if n_pad <= 8192:
+        got = cbs.locate_rows(*rows, 2, n_max=n_max)
+        for g, w in zip(got, cbs.locate_rows_reference(*rows, 2)):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("n_pad,n_true", [(8192, 8192), (32768, 16597)])
+def test_cbs_arc_kernels_staged_and_through_l2(dev, n_pad, n_true):
+    """A permutation round's shape on both paths: 64 permuted rows of a
+    segment with a step, true size 8,192 at n_pad 8,192 (staged) and
+    16,597 at 32,768 (read through L2): maxima bit-equal with the sums cut
+    to the true size and uncut, (i*, L*) equal on the two observed rows,
+    and far fewer arcs through the exact formula than there are arcs."""
+    from wisecondorx_tpu_torch.ops import cbs
+
+    rng = np.random.default_rng(n_true)
+    x = rng.normal(0.0, 0.1, n_true)
+    x[n_true // 3: n_true // 2] += 0.3
+    w = rng.uniform(0.5, 1.5, n_true)
+    rows = [(w, x)] + [(w[p], x[p]) for p in (rng.permutation(n_true)
+                                             for _ in range(63))]
+    w_all, wx_all, n = (torch.as_tensor(a, device=dev)
+                        for a in chip_smoke._arc_row_tables(rows, n_pad))
+    lengths = cbs._lengths_tensor(n_pad, cbs.CBSConfig(), "thin", dev)
+    want = cbs.max_t_rows_reference(w_all, wx_all, n, lengths, 2, 25)
+    count = torch.zeros(1, dtype=torch.int64, device=dev)
+    for n_max in (n_true, None):
+        _same_or_nan(cbs.max_t_rows(w_all, wx_all, n, lengths, 2, 25,
+                                    n_max=n_max, exact_arcs=count), want)
+    arcs = chip_smoke._arc_count(n.cpu().numpy(), lengths.cpu().numpy(), 2, 25)
+    assert 0 < int(count) < 0.1 * 2 * arcs
+    obs = [t[:2] for t in (w_all, wx_all, n)]
+    got = cbs.locate_rows(*obs, 2, n_max=n_true)
+    for g, v in zip(got, cbs.locate_rows_reference(*obs, 2)):
+        assert torch.equal(g, v)
+
+
+def test_cbs_arc_stage_bytes_match_the_library(dev):
+    from wisecondorx_tpu_torch.ops import _build, cbs
+
+    assert _build.load().wcx_cbs_arc_stage_bytes() == cbs.ARC_STAGE_BYTES
 
 
 @pytest.mark.parametrize("rows,n_pad", [(1, 8), (37, 300), (1026, 8192)])

@@ -123,17 +123,17 @@ def load() -> ctypes.CDLL:
             lib.wcx_knn_bucket.restype = i
             lib.wcx_knn_topk.argtypes = [p, p, p, i, i, i, i, p, p, p, p]
             lib.wcx_knn_topk.restype = i
-            lib.wcx_cbs_arc_max.argtypes = [p, p, p, i, i, p, i, i, i, i, p, p, p]
+            lib.wcx_cbs_arc_max.argtypes = [p, p, p, i, i, p, i, i, i, i, p, p, p, p]
             lib.wcx_cbs_arc_max.restype = i
             lib.wcx_cbs_arc_argmax.argtypes = [
-                p, p, p, i, i, p, i, i, i, p, p, p, p, p, p,
+                p, p, p, i, i, p, i, i, i, p, p, p, p, p, p, p,
             ]
             lib.wcx_cbs_arc_argmax.restype = i
             lib.wcx_cbs_keys.argtypes = [u, u, p, p, p, p, p, i, i, p, p]
             lib.wcx_cbs_keys.restype = i
             for name in ("wcx_knn_bucket_depth", "wcx_knn_bucket_col_tile",
                          "wcx_knn_bucket_k_chunk", "wcx_knn_bucket_resident_s_pad",
-                         "wcx_knn_topk_pool_max", "wcx_cbs_arc_stage_max"):
+                         "wcx_knn_topk_pool_max", "wcx_cbs_arc_stage_bytes"):
                 getattr(lib, name).argtypes = []
                 getattr(lib, name).restype = i
             _lib = lib

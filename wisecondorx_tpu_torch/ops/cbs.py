@@ -249,14 +249,17 @@ def shuffle_rows(keys, w_rows, wx_rows):
 # ---------------------------------------------------------------------------
 
 
-def _row_cumsums(w_rows, wx_rows):
-    """Zero-prefixed cumulative sums [B, n_pad + 1] of whole rows, shared
-    by the kernels and the plain versions, so that on the card both start
-    from the same float64 sums."""
+def _row_cumsums(w_rows, wx_rows, width: int | None = None):
+    """Zero-prefixed cumulative sums [B, width + 1] (width n_pad by
+    default) of whole rows, shared by the kernels and the plain versions,
+    so that on the card both start from the same float64 sums: the sums
+    run over the whole padded rows and only their first ``width`` columns
+    are kept."""
+    width = w_rows.shape[1] if width is None else width
     zero = torch.zeros((w_rows.shape[0], 1), dtype=w_rows.dtype,
                        device=w_rows.device)
-    return (torch.cat([zero, torch.cumsum(w_rows, dim=1)], dim=1),
-            torch.cat([zero, torch.cumsum(wx_rows, dim=1)], dim=1))
+    return (torch.cat([zero, torch.cumsum(w_rows, dim=1)[:, :width]], dim=1),
+            torch.cat([zero, torch.cumsum(wx_rows, dim=1)[:, :width]], dim=1))
 
 
 def _length_groups(n_lengths: int, rows: int, n_pad: int, device):
@@ -380,24 +383,130 @@ def locate_rows_reference(w_seg, wx_seg, n_seg, min_width: int):
     return best_i, best_l
 
 
-#: CTAs an arc kernel launch aims at: a row's lengths are dealt out over
-#: enough chunks that a call with few rows (the locate scan: at most
+#: The screen of csrc/cbs_arcs.cu (its header derives the margin): the
+#: row guard (W >= W_LO, every |cw[j]| <= W_HI and |cwx[j]| <= X_HI), the
+#: range of the threshold m, the relative term SHRINK and the absolute
+#: floor max(FLOOR_K * Xmax * Wmax, F_MIN).
+SCREEN_W_LO, SCREEN_W_HI, SCREEN_X_HI = 2.0**-100, 2.0**100, 2.0**100
+SCREEN_M_LO, SCREEN_M_HI = 2.0**-200, 2.0**200
+SCREEN_SHRINK = 1.0 - 2.0**-36
+SCREEN_FLOOR_K, SCREEN_F_MIN = 2.0**-44, 2.0**-100
+
+
+def _screen_row_terms(cw, cwx, n_col):
+    """The screen's per-row terms (W, X, F, whether the row passes the
+    guard), each [B, 1], from zero-prefixed sums and true sizes [B, 1]."""
+    pos = torch.arange(cw.shape[1], device=cw.device)
+    w_tot = cw.gather(1, n_col)
+    x_tot = cwx.gather(1, n_col)
+    inside = pos[None, :] <= n_col
+    x_max = torch.where(inside, cwx.abs(), 0.0).amax(dim=1, keepdim=True)
+    w_max = torch.where(inside, cw.abs(), 0.0).amax(dim=1, keepdim=True)
+    ok = ((x_max <= SCREEN_X_HI) & (w_max <= SCREEN_W_HI)
+          & (w_tot >= SCREEN_W_LO))  # NaN fails every comparison
+    floor = torch.clamp_min(
+        (torch.nan_to_num(x_max) * torch.nan_to_num(w_max)) * SCREEN_FLOOR_K,
+        SCREEN_F_MIN)
+    return w_tot, x_tot, floor, ok
+
+
+def _screen_q(m, w_tot, ok):
+    """The screen's Q for thresholds ``m`` (broadcast against [B, 1]): 0,
+    which rules nothing out, outside the guards."""
+    in_range = ok & (m >= SCREEN_M_LO) & (m <= SCREEN_M_HI)
+    return torch.where(in_range, w_tot * ((m * m) * SCREEN_SHRINK), 0.0)
+
+
+def arc_screen_reference(w_rows, wx_rows, n_rows, lengths, min_width: int, m):
+    """Plain PyTorch version of the arc kernels' screen (tests only): [B,
+    G, n_pad + 1] bool, True where the window arc (i, i + L] is valid and
+    the screen proves its |T| strictly below ``m`` ([B] or [B, G, n_pad +
+    1] float64 thresholds), so the kernel skips it.  The same float64
+    operations, in the same order, as csrc/cbs_arcs.cu's screen_a,
+    screen_q and screened_out."""
+    cw, cwx = _row_cumsums(w_rows, wx_rows)
+    n = cw.shape[1] - 1
+    n_col = n_rows.reshape(-1, 1)
+    w_tot, x_tot, floor, ok = _screen_row_terms(cw, cwx, n_col)
+    a = cwx * w_tot - x_tot * cw  # a[j], [B, n + 1]
+    w_tot, floor, ok = (t[:, :, None] for t in (w_tot, floor, ok))
+    m = torch.as_tensor(m, dtype=cw.dtype, device=cw.device)
+    if m.dim() == 1:
+        m = m[:, None, None]
+    i_idx = torch.arange(n + 1, device=cw.device)
+    end = (i_idx[None, :] + lengths[:, None].long()).clamp(max=n)
+    w1 = cw[:, end] - cw[:, None, :]
+    num = a[:, end] - a[:, None, :]
+    w0 = w_tot - w1
+    t1 = num.abs() + floor
+    skip = t1 * t1 < (w1 * w0) * _screen_q(m, w_tot, ok)
+    L3 = lengths[None, :, None].long()
+    n3 = n_col[:, :, None]
+    valid = ((i_idx[None, None, :] + L3 <= n3) & (L3 >= min_width)
+             & (L3 <= n3 - min_width))
+    return skip & valid
+
+
+#: Shared memory csrc/cbs_arcs.cu may stage a row's two sums in
+#: (``wcx_cbs_arc_stage_bytes``).
+ARC_STAGE_BYTES = 216 * 1024
+#: CTAs an arc kernel launch aims at: a row's lengths are cut into enough
+#: chunks that a call with few rows (the locate scan: at most
 #: ``seg_batch`` segments) still spreads over the card.
 ARC_TARGET_CTAS = 2048
+#: Window arcs a chunk holds at least, counted as lengths x (width + 1),
+#: so that staging a row costs little beside its arcs.
+ARC_MIN_ARCS = 1 << 19
+#: Chunks per row at least where rows are read through L2: a row's
+#: chunks run next to each other, so fewer rows are in flight than L2
+#: holds.
+ARC_L2_CHUNKS = 4
 
 
-def arc_chunks(rows: int, n_lengths: int, stage_max: int) -> int:
-    """Chunks per row of the arc kernels' grid: about
-    ``ARC_TARGET_CTAS`` blocks in all, at least 8 lengths (one per warp)
-    per chunk where there are that many, and at most ``stage_max`` (what a
-    chunk stages in shared memory)."""
+def arc_width(n_pad: int, n_max: int | None) -> int:
+    """Columns (less one) of the sums the arc kernels get: the largest true
+    row size where the caller knows it, else ``n_pad``."""
+    return n_pad if n_max is None else max(0, min(int(n_max), n_pad))
+
+
+def arc_staged(width: int) -> bool:
+    """Whether the arc kernels stage rows of ``width`` + 1 columns in
+    shared memory (else they read them through L2)."""
+    return 2 * (width + 1) * 8 <= ARC_STAGE_BYTES
+
+
+def arc_chunks(rows: int, n_lengths: int, width: int) -> int:
+    """Chunks per row of the arc kernels' grid: about ``ARC_TARGET_CTAS``
+    blocks in all (at least ``ARC_L2_CHUNKS`` per row on the L2 path), no
+    more than the lengths and no fewer than ``ARC_MIN_ARCS`` arcs each,
+    and at most 2^31 - 1 blocks."""
     want = -(-ARC_TARGET_CTAS // max(rows, 1))
-    most = max(1, n_lengths // 8)
-    return max(-(-n_lengths // stage_max), min(want, most))
+    if not arc_staged(width):
+        want = max(want, ARC_L2_CHUNKS)
+    most = max(1, min(n_lengths, n_lengths * (width + 1) // ARC_MIN_ARCS))
+    return max(1, min(want, most, (2**31 - 1) // max(rows, 1)))
 
 
-def _arc_launch_args(w_rows, wx_rows, n_rows, lengths, lib):
-    """Checks what the arc kernels take; returns (cw, cwx, chunks)."""
+def arc_chunk_bounds(lengths, n: int, min_width: int, chunks: int) -> list:
+    """[(g0, g1)] per chunk: the lengths a block of a row of true size
+    ``n`` takes (csrc/cbs_arcs.cu chunk_range).  Chunk c starts at the
+    first g whose preceding lengths hold total * c // chunks window arcs,
+    so the chunks are contiguous, of about equal arcs, and hold every
+    length with an arc exactly once."""
+    L = np.asarray(lengths, dtype=np.int64)
+    arcs = np.where((L >= min_width) & (L <= n - min_width), n - L + 1, 0)
+    before = np.concatenate([[0], np.cumsum(arcs)])
+    total = int(before[-1])
+
+    def first(target):
+        return 0 if target <= 0 else int(np.searchsorted(before, target))
+
+    return [(first(total * c // chunks), first(total * (c + 1) // chunks))
+            for c in range(chunks)]
+
+
+def _arc_launch_args(w_rows, wx_rows, n_rows, lengths, n_max, exact_arcs):
+    """Checks what the arc kernels take; returns (cw, cwx, width, chunks)."""
     from wisecondorx_tpu_torch.ops import _build
 
     rows, n_pad = w_rows.shape
@@ -406,35 +515,30 @@ def _arc_launch_args(w_rows, wx_rows, n_rows, lengths, lib):
         _build.check_tensor(t, name, torch.float64, (rows, n_pad), dev)
     _build.check_tensor(n_rows, "n_rows", torch.int64, (rows,), dev)
     _build.check_tensor(lengths, "lengths", torch.int32, (lengths.shape[0],), dev)
-    cw, cwx = _row_cumsums(w_rows, wx_rows)
-    return cw, cwx, arc_chunks(rows, lengths.shape[0], lib.wcx_cbs_arc_stage_max())
+    if exact_arcs is not None:
+        _build.check_tensor(exact_arcs, "exact_arcs", torch.int64, (1,), dev)
+    width = arc_width(n_pad, n_max)
+    cw, cwx = _row_cumsums(w_rows, wx_rows, width)
+    return cw, cwx, width, arc_chunks(rows, lengths.shape[0], width)
 
 
-def max_t_rows(w_rows, wx_rows, n_rows, lengths, min_width: int, kmax: int):
-    """Max |T| per row over the window arcs of ``lengths`` plus the wrap
-    arcs of circular length <= kmax; -inf where no arc is valid, NaN where
-    a valid arc is NaN.  ``w_rows``/``wx_rows`` [B, n_pad] float64 (zero
-    past each row's true size ``n_rows[b]``, int64).  A CUDA tensor
-    launches csrc/cbs_arcs.cu (``lengths`` int32 there; no host sync), a
-    CPU tensor takes :func:`max_t_rows_reference`."""
-    if not _on_card(w_rows):
-        return max_t_rows_reference(w_rows, wx_rows, n_rows, lengths,
-                                    min_width, kmax)
+def _arc_max_launch(cw, cwx, n_rows, lengths, min_width, kmax, width, chunks,
+                    exact_arcs=None):
+    """Launches csrc/cbs_arcs.cu's wcx_cbs_arc_max on sums [B, width + 1]
+    from :func:`_arc_launch_args`; returns the maxima [B]."""
     from wisecondorx_tpu_torch.ops import _build
 
-    lib = _build.load()
-    cw, cwx, chunks = _arc_launch_args(w_rows, wx_rows, n_rows, lengths, lib)
-    rows, n_pad = w_rows.shape
-    out = torch.empty(rows, dtype=torch.float64, device=w_rows.device)
+    rows = cw.shape[0]
+    out = torch.empty(rows, dtype=torch.float64, device=cw.device)
     if rows == 0:
         return out
-    partial = torch.empty(rows * chunks, dtype=torch.float64,
-                          device=w_rows.device)
-    err = lib.wcx_cbs_arc_max(
-        cw.data_ptr(), cwx.data_ptr(), n_rows.data_ptr(), rows, n_pad,
+    partial = torch.empty(rows * chunks, dtype=torch.float64, device=cw.device)
+    err = _build.load().wcx_cbs_arc_max(
+        cw.data_ptr(), cwx.data_ptr(), n_rows.data_ptr(), rows, width,
         lengths.data_ptr(), lengths.shape[0], int(min_width), int(kmax),
         chunks, partial.data_ptr(), out.data_ptr(),
-        torch.cuda.current_stream(w_rows.device).cuda_stream,
+        None if exact_arcs is None else exact_arcs.data_ptr(),
+        torch.cuda.current_stream(cw.device).cuda_stream,
     )
     if err:
         raise RuntimeError(f"cbs_arc_max launch failed: CUDA error {err}")
@@ -442,21 +546,12 @@ def max_t_rows(w_rows, wx_rows, n_rows, lengths, min_width: int, kmax: int):
     return out
 
 
-def locate_rows(w_seg, wx_seg, n_seg, min_width: int):
-    """Exact scan over every window length per segment: (i*, L*) [S] int64
-    of the max |T|, ties to the shortest arc and then the smallest start;
-    a length with a NaN arc never wins; (0, 0) where no arc is valid.  A
-    CUDA tensor launches csrc/cbs_arcs.cu, a CPU tensor takes
-    :func:`locate_rows_reference`."""
-    if not _on_card(w_seg):
-        return locate_rows_reference(w_seg, wx_seg, n_seg, min_width)
+def _arc_argmax_launch(cw, cwx, n_seg, lengths, min_width, width, chunks,
+                       exact_arcs=None):
+    """Launches wcx_cbs_arc_argmax likewise; returns (i*, L*) [S]."""
     from wisecondorx_tpu_torch.ops import _build
 
-    lib = _build.load()
-    rows, n_pad = w_seg.shape
-    dev = w_seg.device
-    lengths = torch.arange(n_pad, dtype=torch.int32, device=dev)
-    cw, cwx, chunks = _arc_launch_args(w_seg, wx_seg, n_seg, lengths, lib)
+    rows, dev = cw.shape[0], cw.device
     best_i = torch.empty(rows, dtype=torch.int64, device=dev)
     best_l = torch.empty(rows, dtype=torch.int64, device=dev)
     if rows == 0:
@@ -464,11 +559,13 @@ def locate_rows(w_seg, wx_seg, n_seg, min_width: int):
     part_v = torch.empty(rows * chunks, dtype=torch.float64, device=dev)
     part_g = torch.empty(rows * chunks, dtype=torch.int32, device=dev)
     part_i = torch.empty(rows * chunks, dtype=torch.int32, device=dev)
-    err = lib.wcx_cbs_arc_argmax(
-        cw.data_ptr(), cwx.data_ptr(), n_seg.data_ptr(), rows, n_pad,
-        lengths.data_ptr(), n_pad, int(min_width), chunks, part_v.data_ptr(),
-        part_g.data_ptr(), part_i.data_ptr(), best_i.data_ptr(),
-        best_l.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+    err = _build.load().wcx_cbs_arc_argmax(
+        cw.data_ptr(), cwx.data_ptr(), n_seg.data_ptr(), rows, width,
+        lengths.data_ptr(), lengths.shape[0], int(min_width), chunks,
+        part_v.data_ptr(), part_g.data_ptr(), part_i.data_ptr(),
+        best_i.data_ptr(), best_l.data_ptr(),
+        None if exact_arcs is None else exact_arcs.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     if err:
         raise RuntimeError(f"cbs_arc_argmax launch failed: CUDA error {err}")
@@ -476,9 +573,49 @@ def locate_rows(w_seg, wx_seg, n_seg, min_width: int):
     return best_i, best_l
 
 
+def max_t_rows(w_rows, wx_rows, n_rows, lengths, min_width: int, kmax: int,
+               n_max: int | None = None, exact_arcs=None):
+    """Max |T| per row over the window arcs of ``lengths`` plus the wrap
+    arcs of circular length <= kmax; -inf where no arc is valid, NaN where
+    a valid arc is NaN.  ``w_rows``/``wx_rows`` [B, n_pad] float64 (zero
+    past each row's true size ``n_rows[b]``, int64).  A CUDA tensor
+    launches csrc/cbs_arcs.cu (``lengths`` int32 there; no host sync), a
+    CPU tensor takes :func:`max_t_rows_reference`.  ``n_max``, a bound on
+    ``n_rows`` the caller knows on the host, sizes the sums the kernel
+    stages; ``exact_arcs`` (int64 [1] on the card, or None) receives the
+    number of arcs that took the exact formula."""
+    if not _on_card(w_rows):
+        return max_t_rows_reference(w_rows, wx_rows, n_rows, lengths,
+                                    min_width, kmax)
+    cw, cwx, width, chunks = _arc_launch_args(w_rows, wx_rows, n_rows, lengths,
+                                              n_max, exact_arcs)
+    return _arc_max_launch(cw, cwx, n_rows, lengths, min_width, kmax, width,
+                           chunks, exact_arcs)
+
+
+def locate_rows(w_seg, wx_seg, n_seg, min_width: int, n_max: int | None = None,
+                exact_arcs=None):
+    """Exact scan over every window length per segment: (i*, L*) [S] int64
+    of the max |T|, ties to the shortest arc and then the smallest start;
+    a length with a NaN arc never wins; (0, 0) where no arc is valid.  A
+    CUDA tensor launches csrc/cbs_arcs.cu, a CPU tensor takes
+    :func:`locate_rows_reference`.  ``n_max`` and ``exact_arcs`` as in
+    :func:`max_t_rows`."""
+    if not _on_card(w_seg):
+        return locate_rows_reference(w_seg, wx_seg, n_seg, min_width)
+    # Lengths past the widest row have no arc; g is L.
+    lengths = torch.arange(arc_width(w_seg.shape[1], n_max), dtype=torch.int32,
+                           device=w_seg.device)
+    cw, cwx, width, chunks = _arc_launch_args(w_seg, wx_seg, n_seg, lengths,
+                                              n_max, exact_arcs)
+    return _arc_argmax_launch(cw, cwx, n_seg, lengths, min_width, width, chunks,
+                              exact_arcs)
+
+
 def perm_round_device(base_key, w_seg, wx_seg, n_seg, seg_of_row, row_live,
                       row_salt, row_lo, row_hi, row_draw, obs_ext, lengths,
-                      min_width: int, kmax: int, use_ext_obs: bool = False):
+                      min_width: int, kmax: int, use_ext_obs: bool = False,
+                      n_max: int | None = None):
     """One permutation round for a chunk of S segments, generated on the
     segments' device.
 
@@ -487,7 +624,8 @@ def perm_round_device(base_key, w_seg, wx_seg, n_seg, seg_of_row, row_live,
     (``row_live``), and its key words (salt, lo, hi, draw).  The S
     unshuffled segments are scored with the permuted rows, so the observed
     statistic comes out of the same round; with ``use_ext_obs`` (hybrid)
-    the permuted maxima are compared with ``obs_ext`` instead.
+    the permuted maxima are compared with ``obs_ext`` instead.  ``n_max``
+    (the largest segment, known on the host) sizes the arc kernel's sums.
 
     Returns (exceed counts [S] int64, observed max |T| [S])."""
     ROUNDS["device"] += 1
@@ -497,7 +635,8 @@ def perm_round_device(base_key, w_seg, wx_seg, n_seg, seg_of_row, row_live,
                      w_seg.shape[1])
     w_p, wx_p = shuffle_rows(keys, w_seg[seg_of_row], wx_seg[seg_of_row])
     best = max_t_rows(torch.cat([w_seg, w_p]), torch.cat([wx_seg, wx_p]),
-                      torch.cat([n_seg, n_rows]), lengths, min_width, kmax)
+                      torch.cat([n_seg, n_rows]), lengths, min_width, kmax,
+                      n_max=n_max)
     obs = best[:s]
     obs_cmp = obs_ext if use_ext_obs else obs
     ex = (best[s:] >= obs_cmp[seg_of_row]) & row_live
@@ -637,7 +776,8 @@ def _decide_group(items, jobs, salts, n_pad, mode, cfg, device,
         for chunk in _chunks(items, cfg.seg_batch):
             w_seg, wx_seg, n_seg = _seg_tables(chunk, jobs, n_pad, device)
             obs = max_t_rows(w_seg, wx_seg, n_seg, obs_lengths,
-                             cfg.min_width, cfg.kmax).cpu().numpy()
+                             cfg.min_width, cfg.kmax,
+                             n_max=max(it.n for it in chunk)).cpu().numpy()
             for s, it in enumerate(chunk):
                 o = float(obs[s])
                 if not np.isfinite(o) or o <= 0:
@@ -695,6 +835,7 @@ def _perm_loop_device(chunk, jobs, salts, n_pad, lengths, cfg, device,
             base_key, w_seg, wx_seg, n_seg, seg_of_row,
             torch.ones(len(seg_of_row), dtype=torch.bool, device=device),
             *words, obs_ext, lengths, cfg.min_width, cfg.kmax, use_ext,
+            n_max=max(it.n for it in chunk),
         )
         ex_counts = ex_counts.cpu().numpy()
         for pos, s in enumerate(active):
@@ -764,7 +905,7 @@ def _perm_loop_host(chunk, jobs, salts, n_pad, lengths, cfg, observed,
             torch.as_tensor(w_rows, device=device),
             torch.as_tensor(wx_rows, device=device),
             torch.as_tensor(n_rows, device=device),
-            lengths, cfg.min_width, cfg.kmax,
+            lengths, cfg.min_width, cfg.kmax, n_max=int(n_rows.max()),
         ).cpu().numpy()
         for pos, s in enumerate(active):
             it = chunk[s]
@@ -825,7 +966,8 @@ def _segment_jobs(jobs: list, cfg: CBSConfig, device,
         for n_pad, items in sorted(by_pad.items(), reverse=True):
             for chunk in _chunks(items, cfg.seg_batch):
                 i_star, l_star = locate_rows(
-                    *_seg_tables(chunk, jobs, n_pad, device), cfg.min_width
+                    *_seg_tables(chunk, jobs, n_pad, device), cfg.min_width,
+                    n_max=max(it.n for it in chunk),
                 )
                 i_star, l_star = i_star.cpu().numpy(), l_star.cpu().numpy()
                 for s, it in enumerate(chunk):
