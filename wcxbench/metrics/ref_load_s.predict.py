@@ -1,0 +1,13 @@
+"""Reference loading: the loader's ``predict.load.*`` stages (on its
+threads), summed, per sample."""
+
+from wcxbench import readers
+
+LAYER = "reference loading"
+MOVES = "predict_s"
+UNIT = "s"
+SOURCE = "program_span"
+
+
+def read(run):
+    return readers.stage_seconds_per_sample(run, prefixes=("predict.load.",))
