@@ -12,12 +12,17 @@ processes and process 0 writes the reference; predict-batch shards the
 plate's files.  ``predict --plot`` and ``predict-batch --plot`` write the
 JAX package's figures, and ``newref --plotyfrac`` its chrY-fraction figure,
 as PNGs rasterized on the run's device (``output/plots.py``).
+
+``newref``, ``predict`` and ``predict-batch`` each run inside one root
+stage, ``cli.newref``, ``cli.predict`` or ``cli.predict_batch``: the
+request of every span the call keeps (``utils/log.py``).
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import os
 import sys
 from concurrent.futures import ThreadPoolExecutor
 
@@ -47,16 +52,18 @@ def tool_newref(args):
     )
     from wisecondorx_tpu_torch.utils import warmup
 
-    rank, world = maybe_initialize_distributed()
-    devices = resolve_devices(args.device)
-    # Device start-up overlaps the input parsing; the build joins it
-    # before its first device use (the --plotyfrac figure needs no warm-up).
-    warm = (warmup.start_warmup(devices) if args.plotyfrac is None
-            else warmup.Warmup([], "newref"))
-    try:
-        _newref(args, rank, world, devices, warm)
-    finally:
-        warm.wait()
+    with stage_timer("cli.newref", trace=False):
+        rank, world = maybe_initialize_distributed()
+        devices = resolve_devices(args.device)
+        # Device start-up overlaps the input parsing; the build joins it
+        # before its first device use (the --plotyfrac figure needs no
+        # warm-up).
+        warm = (warmup.start_warmup(devices) if args.plotyfrac is None
+                else warmup.Warmup([], "newref"))
+        try:
+            _newref(args, rank, world, devices, warm)
+        finally:
+            warm.wait()
 
 
 def _newref(args, rank, world, devices, warm):
@@ -75,13 +82,14 @@ def _newref(args, rank, world, devices, warm):
     logging.info("Creating new reference on %s%s",
                  ", ".join(map(str, devices)),
                  f" (process {rank} of {world})" if world > 1 else "")
-    with stage_timer("newref.load_inputs"):
+    with stage_timer("newref.load_inputs") as span:
         def load_one(infile):
             sample, binsize, _ = load_sample_npz(infile)
             return sample, binsize
 
         with ThreadPoolExecutor(max_workers=8) as pool:
             samples = list(pool.map(load_one, args.infiles))
+        span.add("bytes", sum(os.path.getsize(f) for f in args.infiles))
     if args.plotyfrac is not None:
         # Plot the gender model's fit for --yfrac tuning, then stop.
         from wisecondorx_tpu_torch.io.npz import scale_sample
@@ -113,7 +121,8 @@ def _newref(args, rank, world, devices, warm):
     with stage_timer("newref.write"):
         _savez_fast(outfile, final)
         logging.info("Reference written to %s", outfile)
-    with stage_timer("newref.verify"):
+    with stage_timer("newref.verify") as span:
+        span.add("bytes", os.path.getsize(outfile))
         verify_reference_npz(outfile, expected_keys=final.keys())
     with stage_timer("newref.qc"):
         qc_reference_arrays(final, label=outfile)
@@ -166,15 +175,16 @@ def tool_test(args):
     from wisecondorx_tpu_torch.device import resolve_device
     from wisecondorx_tpu_torch.utils import warmup
 
-    cfg = _predict_config(args)
-    device = resolve_device(args.device)
-    # Device start-up overlaps the sample's load; the loader joins it
-    # before its first upload.
-    warm = warmup.start_predict_warmup(args.reference, device)
-    try:
-        _predict(args, cfg, device, warm)
-    finally:
-        warm.wait()
+    with stage_timer("cli.predict", trace=False):
+        cfg = _predict_config(args)
+        device = resolve_device(args.device)
+        # Device start-up overlaps the sample's load; the loader joins it
+        # before its first upload.
+        warm = warmup.start_predict_warmup(args.reference, device)
+        try:
+            _predict(args, cfg, device, warm)
+        finally:
+            warm.wait()
 
 
 def _predict(args, cfg, device, warm):
@@ -183,8 +193,9 @@ def _predict(args, cfg, device, warm):
     from wisecondorx_tpu_torch.models.ref_loader import ReferenceLoader
 
     logging.info("Starting CNA prediction on %s", device)
-    with stage_timer("predict.load_sample"):
+    with stage_timer("predict.load_sample") as span:
         sample, sample_binsize, _ = load_sample_npz(args.infile)
+        span.add("bytes", os.path.getsize(args.infile))
     with ReferenceLoader(args.reference, device, warmup=warm) as loader:
         try:
             bins, segments = predict(sample, sample_binsize, None, cfg,
@@ -211,19 +222,19 @@ def tool_test_batch(args):
     )
     from wisecondorx_tpu_torch.utils import warmup
 
-    cfg = _predict_config(args)
-    rank, world = maybe_initialize_distributed()
-    devices = resolve_devices(args.device)
-    # As in predict, on every device.
-    warm = warmup.start_predict_batch_warmup(args.reference, devices)
-    try:
-        _predict_batch(args, cfg, rank, world, devices, warm)
-    finally:
-        warm.wait()
+    with stage_timer("cli.predict_batch", trace=False):
+        cfg = _predict_config(args)
+        rank, world = maybe_initialize_distributed()
+        devices = resolve_devices(args.device)
+        # As in predict, on every device.
+        warm = warmup.start_predict_batch_warmup(args.reference, devices)
+        try:
+            _predict_batch(args, cfg, rank, world, devices, warm)
+        finally:
+            warm.wait()
 
 
 def _predict_batch(args, cfg, rank, world, devices, warm):
-    import os
     import pickle
     import zipfile
 
@@ -275,7 +286,8 @@ def _predict_batch(args, cfg, rank, world, devices, warm):
     all_segments = segment_bins_batch([b for _, b in good], cfg, devices[0])
     for (outid, bins), segments in zip(good, all_segments):
         if args.bed:
-            with stage_timer("predict_batch.write"):
+            with stage_timer("predict_batch.write") as span:
+                span.add("sample", outid)
                 generate_output_tables(outid, bins, segments, cfg,
                                        regions=args.regions)
         if args.plot:

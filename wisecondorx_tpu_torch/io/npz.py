@@ -24,11 +24,10 @@ package, and tests/test_torch_host.py holds the two to the same bytes.
 
 from __future__ import annotations
 
-import logging
-
 import numpy as np
 
 from wisecondorx_tpu_torch.errors import UserInputError
+from wisecondorx_tpu_torch.utils.log import stage_timer
 
 
 class BinScalingError(ValueError, UserInputError):
@@ -183,6 +182,11 @@ def _savez_fast(path, arrays: dict) -> None:
     on both ends.  ``WCX_NPZ_COMPRESS=always|never|auto`` overrides.
 
     Falls back to numpy's writer for members >= 4 GiB (zip64 territory).
+
+    Stages ``npz.write.serialize``, ``npz.write.compress`` and
+    ``npz.write.io``, each with span attributes ``raw_bytes`` (the members'
+    ``.npy`` bytes) and ``stored_bytes`` (the members as the archive holds
+    them, local headers included: the file less its zip directory).
     """
     import io
     import os
@@ -193,19 +197,16 @@ def _savez_fast(path, arrays: dict) -> None:
     if not str(path).endswith(".npz"):
         path = str(path) + ".npz"
 
-    import time
-
     mode = os.environ.get("WCX_NPZ_COMPRESS", "auto")
 
-    t0 = time.perf_counter()
-    members = []
-    for key, val in arrays.items():
-        buf = io.BytesIO()
-        np.lib.format.write_array(
-            buf, np.asanyarray(val), allow_pickle=True
-        )
-        members.append((f"{key}.npy", buf.getbuffer()))
-    t_ser = time.perf_counter()
+    with stage_timer("npz.write.serialize") as serialize:
+        members = []
+        for key, val in arrays.items():
+            buf = io.BytesIO()
+            np.lib.format.write_array(
+                buf, np.asanyarray(val), allow_pickle=True
+            )
+            members.append((f"{key}.npy", buf.getbuffer()))
     if any(len(raw) >= 2**32 - 1 for _, raw in members):
         np.savez_compressed(path, **arrays)  # zip64: numpy handles it
         return
@@ -249,11 +250,11 @@ def _savez_fast(path, arrays: dict) -> None:
             blobs = list(pool.map(one, range(len(pieces))))
         return b"".join(blobs), zlib.crc32(raw)
 
-    with ThreadPoolExecutor(max_workers=4) as pool:
-        compressed = list(
-            pool.map(lambda m: compress_member(m[1]), members)
-        )
-    t_comp = time.perf_counter()
+    with stage_timer("npz.write.compress") as compress:
+        with ThreadPoolExecutor(max_workers=4) as pool:
+            compressed = list(
+                pool.map(lambda m: compress_member(m[1]), members)
+            )
 
     # Any 32-bit zip field overflowing (compressed size, or the running
     # archive offset of a later member / the central directory) needs
@@ -267,7 +268,11 @@ def _savez_fast(path, arrays: dict) -> None:
             np.savez_compressed(path, **arrays)
             return
 
-    with open(path, "wb") as f:
+    with stage_timer("npz.write.io") as writing, open(path, "wb") as f:
+        raw_bytes = sum(len(raw) for _, raw in members)
+        for span in (serialize, compress, writing):
+            span.add("raw_bytes", raw_bytes)
+            span.add("stored_bytes", offset)
         central = []
         for (name, raw), (data, crc) in zip(members, compressed):
             offset = f.tell()
@@ -301,10 +306,6 @@ def _savez_fast(path, arrays: dict) -> None:
                 len(central), len(central), cd_size, cd_start, 0,
             )
         )
-    logging.info(
-        "npz write phases: serialize %.2fs, compress+crc %.2fs, io %.2fs",
-        t_ser - t0, t_comp - t_ser, time.perf_counter() - t_comp,
-    )
 
 
 def load_reference_npz(path):
@@ -422,21 +423,26 @@ def verify_reference_npz(path, expected_keys=None) -> None:
                 )
 
 
-def load_member_rows(path, key, row_start: int):
+def load_member_rows(path, key, row_start: int, stats: dict | None = None):
     """Load ``npz[key][row_start:]`` — reading only the tail bytes when
     the member is STORED (adaptive-stored big tables admit random access
     inside the zip), else falling back to a full load + slice.
 
     The gonosomal predict pass consumes only its chrX/chrY target rows
     (~5% of the table); on a stored member this turns a ~0.5 GB read
-    into ~10 MB.
+    into ~10 MB.  ``stats["bytes"]``, where given, is set to the member's
+    bytes read from the file: its ``.npy`` header and the rows read, or
+    its whole stored size when it is read whole.
     """
     import zipfile
 
     name = f"{key}.npy"
+    if stats is None:
+        stats = {}
     try:
         with zipfile.ZipFile(path) as zf:
             info = zf.getinfo(name)
+            stats["bytes"] = info.compress_size
             if info.compress_type != 0:
                 raise KeyError  # deflated: full load below
             with zf.open(name) as member:
@@ -455,10 +461,13 @@ def load_member_rows(path, key, row_start: int):
                     np.prod(shape[1:], dtype=np.int64)
                 ) * dtype.itemsize
                 rows = shape[0] - row_start
+                header = member.tell()
                 if rows <= 0:
+                    stats["bytes"] = header
                     return np.empty((0,) + shape[1:], dtype=dtype)
                 member.seek(row_start * row_bytes, 1)
                 buf = member.read(rows * row_bytes)
+            stats["bytes"] = header + len(buf)
             return np.frombuffer(buf, dtype=dtype).reshape(
                 (rows,) + shape[1:]
             )

@@ -48,7 +48,7 @@ from wisecondorx_tpu_torch.io.npz import (
 )
 from wisecondorx_tpu_torch.device import to_device, work_dtype
 from wisecondorx_tpu_torch.ops import normalize as norm_ops
-from wisecondorx_tpu_torch.utils.log import stage_timer
+from wisecondorx_tpu_torch.utils.log import carry, stage_timer
 
 
 #: Bytes of one int64 ``[chunk, k]`` temporary of the translation (the
@@ -376,13 +376,19 @@ class ReferenceLoader:
     clock adds up.
 
     ``warmup`` (a ``utils.warmup.Warmup``, or None) is joined before the
-    first upload, and its error raised there."""
+    first upload, and its error raised there.
+
+    The caller's own time in the loader is ``ref_loader.open`` (the small
+    members, read on the caller's thread) and ``ref_loader.wait`` (each
+    wait for the pool, its span attribute ``on`` naming what for:
+    ``tables.<pass>``, ``null.<pass>``, ``cutoff`` or ``close``)."""
 
     def __init__(self, path, device: torch.device, warmup=None):
         self.path = path
         self.device = torch.device(device)
         self._warmup = warmup
-        self.passes, self.meta = load_reference_small(path)
+        with stage_timer("ref_loader.open"):
+            self.passes, self.meta = load_reference_small(path)
         self._pool = ThreadPoolExecutor(max_workers=8,
                                         thread_name_prefix="wcx-ref-loader")
         self._futs: dict = {}
@@ -396,12 +402,24 @@ class ReferenceLoader:
 
     def close(self) -> None:
         """Wait for the loads in flight and stop the thread pool."""
-        self._pool.shutdown(wait=True)
+        with stage_timer("ref_loader.wait") as span:
+            span.add("on", "close")
+            self._pool.shutdown(wait=True)
+
+    def _result(self, key, on: str):
+        """The result of the pool's future ``key``, the wait timed."""
+        with stage_timer("ref_loader.wait") as span:
+            span.add("on", on)
+            return self._futs[key].result()
 
     def _member(self, gender: str, key: str, row_start: int = 0):
         suffix = "" if gender == "A" else f".{gender}"
-        with stage_timer(f"predict.load.{key}{suffix}"):
-            return load_member_rows(self.path, f"{key}{suffix}", row_start)
+        with stage_timer(f"predict.load.{key}{suffix}") as span:
+            read: dict = {}
+            rows = load_member_rows(self.path, f"{key}{suffix}", row_start,
+                                    stats=read)
+            span.add("bytes", read["bytes"])
+            return rows
 
     def _cutoff(self, maskrepeats: int) -> float:
         with stage_timer("predict.load.cutoff"):
@@ -431,7 +449,10 @@ class ReferenceLoader:
             return
         self._started = True
         genders = ["A"] + sorted(set(ref_genders) - {"A"})
-        sub = self._pool.submit
+
+        def sub(fn, *args):
+            return self._pool.submit(carry(fn), *args)
+
         a_small = self.passes["A"]
         # The cutoff is known up front unless it must come from the
         # autosomal distances; then every pass reads its own as well.
@@ -454,10 +475,10 @@ class ReferenceLoader:
             self._futs[("null", g)] = sub(self._member, g, "null_ratios")
 
     def cutoff(self) -> float:
-        return self._futs["cutoff"].result()
+        return self._result("cutoff", "cutoff")
 
     def tables(self, gender: str) -> PassTables:
-        return self._futs[("tables", gender)].result()
+        return self._result(("tables", gender), f"tables.{gender}")
 
     def null_ratios(self, gender: str) -> np.ndarray:
-        return self._futs[("null", gender)].result()
+        return self._result(("null", gender), f"null.{gender}")

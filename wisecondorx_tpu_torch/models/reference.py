@@ -25,7 +25,11 @@ pool.  Stages: ``newref.pass_<g>.prep`` (holding ``.pca``), ``.search``
 (the wait for the search), ``.knn`` and ``.nulls`` (timed on the search
 thread and never traced: its kernels land in whatever stage the calling
 thread traces), ``newref.predict_cache`` (the wait for the caches) and
-``newref.distok_cache``.
+``newref.distok_cache``.  Inside ``.knn`` the search thread's spans (not
+stages: ``utils.log.span``) ``knn.search`` (the search itself),
+``knn.nulls`` (queuing the null ratios) and ``knn.download`` (the tables'
+download) tell its parts apart, each with the attribute ``pass``; a
+serial build has ``knn.search`` around its searches.
 
 A multi-process run and a checkpointed run build the passes one after
 another instead (the JAX package's rule): the KNN search splits its rows
@@ -68,7 +72,7 @@ from wisecondorx_tpu_torch.parallel.multihost import (
 )
 from wisecondorx_tpu_torch.parallel.sharded_knn import knn_search_multidevice
 from wisecondorx_tpu_torch.utils.checkpoint import NewrefCheckpoint, fingerprint
-from wisecondorx_tpu_torch.utils.log import stage_timer
+from wisecondorx_tpu_torch.utils.log import carry, span, stage_timer
 from wisecondorx_tpu_torch.utils.threads import DaemonFuture as _DaemonFuture
 
 
@@ -229,7 +233,7 @@ def _build_pipelined(plan, cohort, layout, total_mask, cfg, null_chooser,
 
     def search_then_cache(prepped, ready):
         built = _search_device(prepped, cfg, devices, ready, stop)
-        return built, pool.submit(_predict_cache, prepped.gender,
+        return built, pool.submit(carry(_predict_cache), prepped.gender,
                                   built["distances"])
 
     try:
@@ -421,11 +425,13 @@ def _search_host(p: _Prepped, cfg, devices, ckpt):
 
     def search(a, b):
         stats: dict = {}
-        idx, dist = knn_search_multihost(
-            p.corrected, ml.chr_of_masked_bin, ml.masked_chr_starts,
-            ml.masked_bins_per_chr, ref_size=cfg.refsize, row_range=(a, b),
-            devices=devices, stats=stats,
-        )
+        with span("knn.search") as part:
+            part.add("pass", p.gender)
+            idx, dist = knn_search_multihost(
+                p.corrected, ml.chr_of_masked_bin, ml.masked_chr_starts,
+                ml.masked_bins_per_chr, ref_size=cfg.refsize,
+                row_range=(a, b), devices=devices, stats=stats,
+            )
         _log_reruns(p.gender, stats)
         return idx, dist
 
@@ -479,30 +485,36 @@ def _search_device(p: _Prepped, cfg, devices, ready, stop):
           else contextlib.nullcontext()):
         _check(stop)
         with stage_timer(f"newref.pass_{p.gender}.knn", trace=False):
-            stats: dict = {}
-            idx, dist = knn_search_multidevice(
-                p.corrected, ml.chr_of_masked_bin, ml.masked_chr_starts,
-                ml.masked_bins_per_chr, ref_size=cfg.refsize,
-                row_range=(r0, n_masked), devices=devices, stats=stats,
-                out_device=dev,
-            )
-            _log_reruns(p.gender, stats)
-            idx32 = idx.to(torch.int32)
-            searched = _record_event(idx32)
+            with span("knn.search") as part:
+                part.add("pass", p.gender)
+                stats: dict = {}
+                idx, dist = knn_search_multidevice(
+                    p.corrected, ml.chr_of_masked_bin, ml.masked_chr_starts,
+                    ml.masked_bins_per_chr, ref_size=cfg.refsize,
+                    row_range=(r0, n_masked), devices=devices, stats=stats,
+                    out_device=dev,
+                )
+                _log_reruns(p.gender, stats)
+                idx32 = idx.to(torch.int32)
+                searched = _record_event(idx32)
             _check(stop)
             # The null-ratio chunks are queued first, the tables' download
             # after them on its own stream, so the two overlap.
-            nulls = knn_ops.compute_null_ratios(p.corrected, idx,
-                                                p.chosen, placeholder_rows=r0)
-            del idx
-            indexes, distances, tables_done = _download_tables(
-                idx32, dist, searched, n_masked, r0, cfg.refsize
-            )
-            del idx32, dist
-            nulls_host, nulls_done = _download(nulls)
-            del nulls
-            if tables_done is not None:
-                tables_done.synchronize()
+            with span("knn.nulls") as part:
+                part.add("pass", p.gender)
+                nulls = knn_ops.compute_null_ratios(
+                    p.corrected, idx, p.chosen, placeholder_rows=r0)
+                del idx
+            with span("knn.download") as part:
+                part.add("pass", p.gender)
+                indexes, distances, tables_done = _download_tables(
+                    idx32, dist, searched, n_masked, r0, cfg.refsize
+                )
+                del idx32, dist
+                nulls_host, nulls_done = _download(nulls)
+                del nulls
+                if tables_done is not None:
+                    tables_done.synchronize()
         with stage_timer(f"newref.pass_{p.gender}.nulls", trace=False):
             if nulls_done is not None:
                 nulls_done.synchronize()

@@ -28,7 +28,7 @@ from wisecondorx_tpu_torch.models.predictor import (
 from wisecondorx_tpu_torch.models.ref_loader import PassTables, ReferenceLoader
 from wisecondorx_tpu_torch.ops import normalize as norm_ops
 from wisecondorx_tpu_torch.ops import pca as pca_ops
-from wisecondorx_tpu_torch.utils.log import stage_timer
+from wisecondorx_tpu_torch.utils.log import carry, stage_timer
 
 
 def _run_pass_batched(samples, ref_pass, tables: PassTables, chunk: int):
@@ -97,7 +97,7 @@ def predict_batch(samples_with_binsize, reference: str, cfg: PredictConfig,
     else:
         with ThreadPoolExecutor(max_workers=len(jobs),
                                 thread_name_prefix="wcx-batch-device") as pool:
-            parts = list(pool.map(lambda job: run(*job), jobs))
+            parts = list(pool.map(carry(lambda job: run(*job)), jobs))
     return [r for part in parts for r in part]
 
 

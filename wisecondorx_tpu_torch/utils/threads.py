@@ -3,12 +3,15 @@
 Unlike a ThreadPoolExecutor's workers, a daemon thread is not joined at
 interpreter exit, so background work cannot hold up a process that is
 exiting with an error; and unlike a best-effort thread, its error is kept
-and raised where the caller joins it.
+and raised where the caller joins it.  Its spans are children of the span
+open where it was started (``utils.log.carry``).
 """
 
 from __future__ import annotations
 
 import threading
+
+from wisecondorx_tpu_torch.utils.log import carry
 
 
 class DaemonFuture:
@@ -16,7 +19,7 @@ class DaemonFuture:
 
     def __init__(self, fn, name):
         self._out = self._exc = None
-        self._thread = threading.Thread(target=self._run, args=(fn,),
+        self._thread = threading.Thread(target=self._run, args=(carry(fn),),
                                         name=name, daemon=True)
         self._thread.start()
 
