@@ -287,9 +287,19 @@ def _bins(rng, dtype):
     ), lengths
 
 
-@pytest.mark.parametrize("case", ["zscore", "beta", "float32", "regions",
-                                  "bad_regions"])
-def test_tables_byte_equal_jax(tmp_path, case):
+@pytest.mark.parametrize("case,route", [
+    pytest.param(case, route, id=case if route == "native" else
+                 f"{case}-python")
+    for route in ("native", "python")
+    for case in ("zscore", "beta", "float32", "regions", "bad_regions")])
+def test_tables_byte_equal_jax(tmp_path, monkeypatch, case, route):
+    """Each table byte-equal to the JAX package's, with ``_bins.bed``'s
+    rows from the native formatter and from the Python loop."""
+    if route == "python":
+        monkeypatch.setattr(t_tables, "_formatter", False)
+    else:
+        assert t_tables.load_formatter() is not None
+    t_tables.reset_bin_row_counts()
     rng = np.random.default_rng(7)
     bins, lengths = _bins(rng, np.float32 if case == "float32" else np.float64)
     segments = []
@@ -330,6 +340,8 @@ def test_tables_byte_equal_jax(tmp_path, case):
         got = open(outs["port"] + suffix, "rb").read()
         assert got == open(outs["jax"] + suffix, "rb").read(), suffix
         assert got
+    other = "python" if route == "native" else "native"
+    assert t_tables.BIN_ROWS == {route: int(sum(lengths)), other: 0}
 
 
 # ---------------------------------------------------------------------------

@@ -27,25 +27,20 @@ package, named by a hash of the sources.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import logging
-import os
-import subprocess
-import tempfile
 import threading
 from pathlib import Path
 
 import numpy as np
 
 from wisecondorx_tpu_torch.errors import UserInputError
+from wisecondorx_tpu_torch.utils.native import NATIVE_DIR, build_library
 
 
 class ConvertError(RuntimeError, UserInputError):
     pass
 
 
-_NATIVE_DIR = Path(__file__).resolve().parents[1] / "native"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "wcx_torch_native"
 _LOCK = threading.Lock()
 _LIB = None
 
@@ -62,37 +57,14 @@ _QC_KEYS = (
 
 
 def _build_library() -> Path:
-    srcs = [_NATIVE_DIR / "bamreader.cpp", _NATIVE_DIR / "cramreader.cpp"]
+    srcs = ["bamreader.cpp", "cramreader.cpp"]
     for src in srcs:
-        if not src.exists():
-            raise ConvertError(f"native source missing: {src}")
-    digest = hashlib.sha256(b"".join(s.read_bytes() for s in srcs))
-    so = _BUILD_DIR / f"libwcxbam_{digest.hexdigest()[:16]}.so"
-    if so.exists():
-        return so
-    logging.info("Building native BAM/CRAM reader ...")
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with tempfile.NamedTemporaryFile(
-        dir=_BUILD_DIR, suffix=".so", delete=False
-    ) as tmp:
-        tmp_path = tmp.name
-    try:
-        subprocess.check_call(
-            [
-                os.environ.get("CXX", "g++"),
-                "-O3", "-std=c++17", "-fPIC", "-shared", "-Wall",
-                "-o", tmp_path, *map(str, srcs),
-                # -l: form — the image ships libbz2.so.1.0 without the
-                # dev symlink; the three codecs have stable ABIs.
-                "-lz", "-l:libbz2.so.1.0", "-llzma",
-            ]
-        )
-    except BaseException:
-        os.unlink(tmp_path)
-        raise
-    # Atomic: a concurrent loader in another process never sees half a file.
-    os.replace(tmp_path, so)
-    return so
+        if not (NATIVE_DIR / src).exists():
+            raise ConvertError(f"native source missing: {NATIVE_DIR / src}")
+    # -l: form — the image ships libbz2.so.1.0 without the dev symlink; the
+    # three codecs have stable ABIs.
+    return build_library("wcxbam", srcs,
+                         ["-lz", "-l:libbz2.so.1.0", "-llzma"])
 
 
 def _load_library():

@@ -6,11 +6,19 @@ Formats preserved exactly: header lines, 1-based starts (``bin*binsize+1``),
 against ``--zscore`` or by ratio against the beta cutoffs
 ``log2((ploidy +- beta/2)/ploidy)`` with ploidy 1 for male gonosomes.
 
-Copy of wisecondorx_tpu/output/tables.py; the port imports nothing of that
-package, and tests/test_torch_host.py holds the two to the same bytes.
+Copy of wisecondorx_tpu/output/tables.py, but for ``_bins.bed``'s rows,
+which a native formatter (``native/tablefmt.cpp``) writes one chromosome at
+a time; the port imports nothing of that package, and
+tests/test_torch_host.py holds the two to the same bytes on either route.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
+import logging
+import subprocess
+import threading
 
 import numpy as np
 
@@ -20,6 +28,23 @@ from wisecondorx_tpu_torch.ops.stats import (
     get_median_segment_variance,
     get_z_score,
 )
+from wisecondorx_tpu_torch.utils.native import build_library
+
+#: Rows of ``_bins.bed`` written since the last :func:`reset_bin_row_counts`,
+#: by route: ``native`` (one ``native/tablefmt.cpp`` call a chromosome) or
+#: ``python`` (:func:`_python_bin_rows`).
+BIN_ROWS = {"native": 0, "python": 0}
+
+#: The dtypes the native formatter prints, by their width in bits.
+_NATIVE_BITS = {np.dtype(np.float32): 32, np.dtype(np.float64): 64}
+_FORMATTER_LOCK = threading.Lock()
+#: None until :func:`load_formatter` first runs, then the library or False.
+_formatter = None
+
+
+def reset_bin_row_counts() -> None:
+    for key in BIN_ROWS:
+        BIN_ROWS[key] = 0
 
 
 def _chr_name(chr0: int) -> str:
@@ -41,14 +66,109 @@ def generate_output_tables(outid, bins, segments, cfg, regions=None):
         _generate_regions_bed(outid, bins, regions)
 
 
+def load_formatter():
+    """The native row formatter (``native/tablefmt.cpp``), built with g++
+    if needed and loaded once per process; None, after one warning, when
+    it cannot be built or loaded (the rows then take the Python loop)."""
+    global _formatter
+    with _FORMATTER_LOCK:
+        if _formatter is None:
+            try:
+                lib = ctypes.CDLL(
+                    str(build_library("wcxtablefmt", ["tablefmt.cpp"]))
+                )
+            except (OSError, subprocess.CalledProcessError) as exc:
+                logging.warning(
+                    "The native _bins.bed formatter did not build or load "
+                    "(%s); the rows are formatted in Python.", exc
+                )
+                _formatter = False
+            else:
+                lib.wcx_bins_row_max.restype = ctypes.c_int64
+                lib.wcx_bins_row_max.argtypes = [ctypes.c_int64]
+                lib.wcx_format_bins.restype = ctypes.c_int64
+                lib.wcx_format_bins.argtypes = [
+                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                    ctypes.c_int64, ctypes.c_int64, ctypes.c_char_p,
+                    ctypes.c_void_p, ctypes.c_int64, ctypes.c_double,
+                    ctypes.c_double,
+                ]
+                _formatter = lib
+        return _formatter or None
+
+
+@functools.cache
+def float32_positional_range() -> tuple[float, float]:
+    """(low, high): numpy's ``str`` of a float32 scalar is positional iff
+    low < |x| < high, and both print in exponent form.  numpy decides by
+    comparing the value with powers of ten that its version sets (1e-4
+    and 1e16 in numpy 2.0, 1e-4 and 1e6 in numpy 2.3); the bounds are
+    found here by bisection over the float32 bit patterns on each side of
+    1, so the native formatter follows the numpy installed."""
+
+    def exponent_form(bits: int) -> bool:
+        return "e" in str(np.array(bits, np.uint32).view(np.float32)[()])
+
+    def first_exponent_form(inside: int, outside: int) -> float:
+        # The pattern next to the positional ones, from inside (printed
+        # positionally) towards outside (in exponent form).
+        while abs(outside - inside) > 1:
+            mid = (inside + outside) // 2
+            if exponent_form(mid):
+                outside = mid
+            else:
+                inside = mid
+        return float(np.array(outside, np.uint32).view(np.float32)[()])
+
+    one = int(np.array(1.0, np.float32).view(np.uint32))
+    top = int(np.array(np.finfo(np.float32).max).view(np.uint32))
+    # 1: the smallest subnormal.
+    return first_exponent_form(one, 1), first_exponent_form(one, top)
+
+
 def _generate_bins_bed(outid, bins):
     """reference predict_output.py:59-84.
 
-    Byte-identical to the reference's per-row loop (``repr`` of a Python
-    float equals numpy's scalar ``str`` — both shortest-round-trip), but
-    batched per chromosome: at 15 kb a plate pays ~0.5 s per sample in
-    row formatting otherwise."""
+    Each chromosome's rows come from one call of the native formatter when
+    its ratios and z-scores are float32 (from a card) or float64 arrays and
+    the formatter loads, else from :func:`_python_bin_rows`; both write
+    the same bytes as the reference's per-row loop."""
+    fmt = load_formatter()
     binsize = bins.binsize
+    buf = np.empty(0, np.uint8)
+    with open(f"{outid}_bins.bed", "wb") as f:
+        f.write(b"chr\tstart\tend\tid\tratio\tzscore\n")
+        for c in range(len(bins.results_r)):
+            chr_name = _chr_name(c)
+            r = np.asarray(bins.results_r[c])
+            z = np.asarray(bins.results_z[c])
+            n = min(len(r), len(z))
+            bits = _NATIVE_BITS.get(r.dtype)
+            if fmt is None or bits is None or z.dtype != r.dtype:
+                f.write(_python_bin_rows(chr_name, r, z, binsize).encode())
+                BIN_ROWS["python"] += n
+                continue
+            name = chr_name.encode()
+            need = n * fmt.wcx_bins_row_max(len(name))
+            if len(buf) < need:
+                buf = np.empty(need, np.uint8)
+            r = np.ascontiguousarray(r[:n])
+            z = np.ascontiguousarray(z[:n])
+            size = fmt.wcx_format_bins(r.ctypes.data, z.ctypes.data, bits, n,
+                                       int(binsize), name, buf.ctypes.data,
+                                       len(buf), *float32_positional_range())
+            if size < 0:
+                raise RuntimeError(
+                    f"native formatter failed on chromosome {chr_name}"
+                )
+            f.write(memoryview(buf)[:size])
+            BIN_ROWS["native"] += n
+
+
+def _python_bin_rows(chr_name, r, z, binsize) -> str:
+    """One chromosome's rows formatted bin by bin in Python: the plain
+    version of ``native/tablefmt.cpp``.  ``repr`` of a Python float equals
+    numpy's scalar ``str`` (both shortest round-trip)."""
 
     def cells(arr):
         # float64 values format fastest as Python floats (repr == the
@@ -62,25 +182,20 @@ def _generate_bins_bed(outid, bins):
             return arr.tolist(), repr
         return list(arr), str
 
-    with open(f"{outid}_bins.bed", "w") as f:
-        f.write("chr\tstart\tend\tid\tratio\tzscore\n")
-        for c in range(len(bins.results_r)):
-            chr_name = _chr_name(c)
-            rs, rfmt = cells(bins.results_r[c])
-            zs, zfmt = cells(bins.results_z[c])
-            lines = []
-            feat = 1
-            for r, z in zip(rs, zs):
-                e = feat + binsize - 1
-                rstr = "nan" if r == 0 else rfmt(r)
-                zstr = "nan" if z == 0 else zfmt(z)
-                lines.append(
-                    f"{chr_name}\t{feat}\t{e}\t{chr_name}:{feat}-{e}\t"
-                    f"{rstr}\t{zstr}"
-                )
-                feat += binsize
-            if lines:
-                f.write("\n".join(lines) + "\n")
+    rs, rfmt = cells(r)
+    zs, zfmt = cells(z)
+    lines = []
+    feat = 1
+    for r, z in zip(rs, zs):
+        e = feat + binsize - 1
+        rstr = "nan" if r == 0 else rfmt(r)
+        zstr = "nan" if z == 0 else zfmt(z)
+        lines.append(
+            f"{chr_name}\t{feat}\t{e}\t{chr_name}:{feat}-{e}\t"
+            f"{rstr}\t{zstr}"
+        )
+        feat += binsize
+    return "\n".join(lines) + "\n" if lines else ""
 
 
 def _aberration_cutoffs(beta, ploidy):

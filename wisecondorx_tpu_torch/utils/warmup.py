@@ -11,8 +11,9 @@ path, wherever the main path first needs the card.
 The CLIs start a warm-up on daemon threads before they read their inputs:
 :func:`start_warmup` (newref: the round trip and the kernel library),
 :func:`start_predict_warmup` and :func:`start_predict_batch_warmup` (the
-round trip and the translation of a small neighbour table at the
-reference's ``k``).  On CUDA no program is compiled per shape, so unlike
+round trip, the translation of a small neighbour table at the reference's
+``k``, and the load of the ``_bins.bed`` row formatter, a g++ build in a
+fresh checkout).  On CUDA no program is compiled per shape, so unlike
 the JAX module the warm-up plans no pass shapes; what a first launch of
 the other kernel families costs, and why nothing more is warmed, is
 measured in PERF.md (chip_smoke.py's ``cold`` phase).
@@ -91,6 +92,16 @@ def _warm_library(device) -> None:
             _build.load()
 
 
+def _warm_tables() -> None:
+    """Build if needed and load the ``_bins.bed`` row formatter (host
+    only; once per process).  A formatter that does not build fails
+    nothing: the rows then take the Python loop (``tables.load_formatter``)."""
+    from wisecondorx_tpu_torch.output import tables
+
+    with stage_timer("warmup.tables", trace=False):
+        tables.load_formatter()
+
+
 def warm_translate(device, k: int) -> None:
     """The upload and the device translation of a small int32 neighbour
     table with ``k`` columns, its cutoff read from packed bits, on
@@ -131,8 +142,8 @@ def start_warmup(devices) -> Warmup:
 def start_predict_warmup(ref_path, device) -> Warmup:
     """predict's warm-up on ``device``: the round trip, then
     :func:`warm_translate` at the reference's ``k``, read from the npz
-    headers without its tables.  Join it before the loader's first
-    upload."""
+    headers without its tables, then the row formatter
+    (:func:`_warm_tables`).  Join it before the loader's first upload."""
     return start_predict_batch_warmup(ref_path, [device])
 
 
@@ -147,5 +158,6 @@ def start_predict_batch_warmup(ref_path, devices) -> Warmup:
         _warm_context(device)
         k = reference_npz_headers(ref_path)["A"]["indexes_shape"][1]
         warm_translate(device, k)
+        _warm_tables()
 
     return Warmup((_start("predict", d, work) for d in devices), "predict")
