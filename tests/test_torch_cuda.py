@@ -207,6 +207,51 @@ def test_predict_tables_and_dispatch_on_the_card(dev, tmp_path, maskrepeats):
     assert record["equal_to_sequential"] and record["passes"] == ["A", "F"]
 
 
+@pytest.mark.parametrize("mode, route", [("always", "pieces"), ("never", "stored")])
+def test_loader_reads_members_into_pinned_memory(dev, tmp_path, monkeypatch, mode,
+                                                 route):
+    """The streamed loader on the card reads the indexes it uploads
+    straight into pinned memory, on the member's route (a deflated A table
+    inflated in pieces, or a stored one read by range; the gonosomal rows
+    from the first target row on), and its tables equal the plain numpy
+    translation of the same reference."""
+    from synthetic import CohortSim
+    from wisecondorx_tpu_torch.io import npz
+    from wisecondorx_tpu_torch.models import ref_loader
+    from wisecondorx_tpu_torch.models.reference import NewrefConfig, build_reference
+
+    samples, _ = CohortSim(binsize=1e5, genome_scale=1.0, seed=5).cohort(12, 12)
+    passes, meta = build_reference([(s, 100000) for s in samples],
+                                   NewrefConfig(binsize=100000, refsize=100), dev)
+    ref = str(tmp_path / "ref.npz")
+    with monkeypatch.context() as m:
+        m.setenv("WCX_NPZ_COMPRESS", mode)
+        npz._savez_fast(ref, npz.flatten_reference(
+            passes, is_nipt=meta["is_nipt"], trained_cutoff=meta["trained_cutoff"]))
+    read = npz.NpzReader.read
+    seen = {}
+
+    def spy(self, key, row_start=0, stats=None, alloc=None):
+        stats = {} if stats is None else stats
+        out = read(self, key, row_start, stats, alloc)
+        seen[key] = (stats["route"], torch.from_numpy(out).is_pinned())
+        return out
+
+    monkeypatch.setattr(npz.NpzReader, "read", spy)
+    torch.zeros(1, device=dev)  # the context exists, as after the warm-up
+    with ref_loader.ReferenceLoader(ref, dev) as loader:
+        loader.start(["F"], 5)
+        cutoff = loader.cutoff()
+        got = {g: loader.tables(g).sentinel_idx.cpu().numpy() for g in ("A", "F")}
+    loaded = dict(seen)
+    want, _ = npz.load_reference_npz(ref)
+    for g in ("A", "F"):
+        plain = ref_loader.plain_sentinel(want[g], g, cutoff, want["A"])
+        assert np.array_equal(got[g], plain), g
+    assert loaded["indexes"] == loaded["indexes.F"] == (route, True)
+    assert not loaded["null_ratios"][1]  # read for the host
+
+
 def test_scene_raster_on_the_card_equals_the_cpu_raster(dev):
     """A figure's raster is integer work on host-computed geometry, so the
     card's equals the CPU's bit for bit."""

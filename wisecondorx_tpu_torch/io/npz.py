@@ -18,11 +18,21 @@ Keeping the formats identical lets a reference npz drive our predictor (and
 vice versa), which is the basis of the parity test-suite.
 
 Copy of wisecondorx_tpu/io/npz.py with what only the JAX package uses left
-out (its distance-skipping load); the port imports nothing of that
-package, and tests/test_torch_host.py holds the two to the same bytes.
+out (its distance-skipping load), and with a member reader of its own
+(:class:`NpzReader`) through which the reference loads read; the port
+imports nothing of that package, and tests/test_torch_host.py holds the
+two to the same bytes.
 """
 
 from __future__ import annotations
+
+import io
+import os
+import struct
+import threading
+import zipfile
+import zlib
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -308,46 +318,409 @@ def _savez_fast(path, arrays: dict) -> None:
         )
 
 
+# ---------------------------------------------------------------------------
+# Member reader
+# ---------------------------------------------------------------------------
+
+#: Members read by :class:`NpzReader` since :func:`reset_member_reads`, by
+#: route: ``stored`` (a stored member read by byte range), ``pieces`` (a
+#: deflated member inflated at its full-flush points in parallel),
+#: ``serial`` (a deflated member that does not split, left to ``np.load``,
+#: which inflates it on one thread) and ``numpy`` (a member the reader
+#: cannot lay out, left to ``np.load``: see :class:`NpzReader`).  Each
+#: ``{"members": n, "bytes": b}``, ``b`` the bytes read from the file
+#: (``stats["bytes"]`` of :meth:`NpzReader.read`).
+MEMBER_READS = {
+    route: {"members": 0, "bytes": 0}
+    for route in ("stored", "pieces", "serial", "numpy")
+}
+_READS_LOCK = threading.Lock()
+
+#: The empty stored block that ends each piece of a full-flushed deflate
+#: stream (``_savez_fast``'s 8 MiB pieces), byte-aligned.
+_FLUSH_MARK = b"\x00\x00\xff\xff"
+#: Bytes of a stored member's slice, at least, per pool task.
+_SLICE_BYTES = 4 << 20
+#: Threads of a reader's pool: slices and pieces read or inflated at once.
+_WORKERS = 8
+#: Bytes of a member's head read for its ``.npy`` header, at most.
+_HEADER_BYTES = 1 << 12
+#: Raw bytes of one of ``_savez_fast``'s pieces: a member no larger is
+#: inflated whole, with no scan for a split.
+_PIECE_BYTES = 1 << 23
+
+
+def reset_member_reads() -> None:
+    with _READS_LOCK:
+        for counts in MEMBER_READS.values():
+            counts["members"] = counts["bytes"] = 0
+
+
+def _multmodp(a: int, b: int) -> int:
+    """a x b modulo the CRC-32 polynomial (reflected; zlib's multmodp)."""
+    m, p = 1 << 31, 0
+    while True:
+        if a & m:
+            p ^= b
+            if a & (m - 1) == 0:
+                return p
+        m >>= 1
+        b = (b >> 1) ^ 0xEDB88320 if b & 1 else b >> 1
+
+
+#: x^(2^n) modulo the CRC-32 polynomial, n = 0..31 (zlib's x2n_table).
+_X2N = [1 << 30]
+for _ in range(31):
+    _X2N.append(_multmodp(_X2N[-1], _X2N[-1]))
+
+
+def crc32_combine(crc1: int, crc2: int, len2: int) -> int:
+    """The CRC-32 of ``a + b`` from ``crc32(a)``, ``crc32(b)`` and
+    ``len(b)`` (zlib's ``crc32_combine``, which Python's zlib lacks)."""
+    p, k = 1 << 31, 3  # x^0; 2^3 bits a byte
+    while len2:
+        if len2 & 1:
+            p = _multmodp(_X2N[k & 31], p)
+        len2 >>= 1
+        k += 1
+    return _multmodp(p, crc1) ^ crc2
+
+
+def _flush_points(buf):
+    """Offsets in ``buf`` just past each ``00 00 FF FF``: where a
+    full-flushed deflate stream may start a piece.  A marker can also
+    occur by chance inside compressed data; the caller checks."""
+    at = buf.find(_FLUSH_MARK)
+    while at >= 0:
+        yield at + 4
+        at = buf.find(_FLUSH_MARK, at + 4)
+
+
+def _plain_layout(head, info):
+    """(header length, shape, dtype, bytes a row, data bytes) of the
+    ``.npy`` member ``info`` whose first bytes are ``head``: a C-order
+    array of plain data whose header lies within ``head`` and whose size
+    agrees with the zip's; else None."""
+    head = bytes(head)
+    if head[:6] != b"\x93NUMPY" or len(head) < 12:
+        return None
+    if head[6] == 1:
+        length = 10 + int.from_bytes(head[8:10], "little")
+    else:
+        length = 12 + int.from_bytes(head[8:12], "little")
+    if len(head) < length:
+        return None
+    f = io.BytesIO(head[:length])
+    try:
+        version = tuple(np.lib.format.read_magic(f))
+        reader = {
+            (1, 0): np.lib.format.read_array_header_1_0,
+        }.get(version, np.lib.format.read_array_header_2_0)
+        shape, fortran, dtype = reader(f)
+    except ValueError:
+        return None
+    if fortran or dtype.hasobject:
+        return None
+    row_bytes = int(np.prod(shape[1:], dtype=np.int64)) * dtype.itemsize
+    nbytes = row_bytes * (shape[0] if shape else 1)
+    if length + nbytes != info.file_size:
+        return None
+    return length, shape, dtype, row_bytes, nbytes
+
+
+def _pread_into(fd: int, view, offset: int) -> None:
+    """Fill the writable buffer ``view`` from file offset ``offset``."""
+    done = 0
+    while done < len(view):
+        got = os.preadv(fd, [view[done:]], offset + done)
+        if got == 0:
+            raise EOFError("the archive ends inside a member")
+        done += got
+
+
+def _inflate_piece(view, last: bool):
+    """One piece of a full-flushed deflate stream inflated on its own:
+    (output, its CRC-32), or None where it is no such piece (an error;
+    a piece but the last that reaches the final block, or the last that
+    does not; input left over)."""
+    d = zlib.decompressobj(-15)
+    try:
+        out = d.decompress(view)
+    except zlib.error:
+        return None
+    if d.unused_data or d.eof != last:
+        return None
+    return out, zlib.crc32(out)
+
+
+def _empty(nbytes: int) -> np.ndarray:
+    return np.empty(nbytes, np.uint8)
+
+
+class NpzReader:
+    """The ``.npy`` members of one ``.npz`` file, each read straight into
+    its destination array.
+
+    The zip's central directory and every member's local header are
+    parsed once, on open; :meth:`read` then reads a member by its byte
+    range:
+
+    * a stored member: in slices across the reader's pool (``os.preadv``
+      into the destination), each slice's CRC-32 taken beside it and the
+      slices' combined (:func:`crc32_combine`) against the zip's; a read
+      from row ``row_start > 0`` reads the rows from there on only, and
+      checks no CRC (it lacks the member's head);
+    * a deflated member: its compressed bytes read once, split at the
+      ``00 00 FF FF`` markers that ``_savez_fast``'s full flushes leave
+      between its independent 8 MiB pieces, and the pieces inflated
+      concurrently (route ``pieces``); the split holds only where every
+      piece inflates, every piece but the last ends before the final
+      block and the last at it, the outputs add up to the member's size
+      and their combined CRC-32 is the zip's.  Otherwise (a member of at
+      most one piece, which is not scanned; no markers, as in a file of
+      ``np.savez_compressed`` or the reference tool; or a marker that came
+      about by chance) the member is left to
+      ``np.load``, which inflates it on the calling thread (route
+      ``serial``);
+    * anything else (an object or Fortran-order array, a ``.npy`` header
+      past the member's first 4 KiB, another zip method) through
+      ``np.load`` (route ``numpy``).
+
+    Every route gives ``np.load(path)[key][row_start:]``; a corrupt
+    member raises as ``np.load`` does (``zipfile.BadZipFile`` on a CRC
+    mismatch, ``zlib.error`` on bad deflate data).  The pool's tasks wait
+    on nothing, so a read may be made from any thread, another pool's
+    included.  Close the reader (or use it as a context manager) to stop
+    its pool and close the file."""
+
+    def __init__(self, path):
+        self.path = str(path)
+        # Its zip's directory is the one parse; the routes ``serial`` and
+        # ``numpy`` read through it (zipfile reads members concurrently).
+        self._npz = np.load(self.path, encoding="latin1", allow_pickle=True)
+        self._fd = -1
+        self._members = {}
+        try:
+            self._fd = os.open(self.path, os.O_RDONLY)
+            for info in self._npz.zip.infolist():
+                if not info.filename.endswith(".npy"):
+                    continue
+                head = bytearray(30)
+                _pread_into(self._fd, memoryview(head), info.header_offset)
+                sig, *_, name_len, extra_len = struct.unpack(
+                    "<IHHHHHIIIHH", head)
+                if sig != 0x04034B50:
+                    raise zipfile.BadZipFile(
+                        f"Bad magic number for file header {info.filename!r}")
+                offset = info.header_offset + 30 + name_len + extra_len
+                self._members[info.filename[:-4]] = (info, offset)
+        except BaseException:
+            if self._fd >= 0:
+                os.close(self._fd)
+            self._npz.close()
+            raise
+        self._pool = ThreadPoolExecutor(max_workers=_WORKERS,
+                                        thread_name_prefix="wcx-npz")
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    def close(self) -> None:
+        self._pool.shutdown(wait=True)
+        if self._fd >= 0:
+            os.close(self._fd)
+            self._fd = -1
+            self._npz.close()
+
+    def __contains__(self, key) -> bool:
+        return key in self._members
+
+    def read(self, key: str, row_start: int = 0, stats: dict | None = None,
+             alloc=None) -> np.ndarray:
+        """``np.load(path)[key][row_start:]``, read by the member's route.
+
+        ``alloc(nbytes)`` gives the destination, a writable uint8 array of
+        ``nbytes`` (default ``np.empty``; the device loader passes pinned
+        memory); the result is a view of it, except on the routes
+        ``serial`` and ``numpy``, which ``np.load`` reads.  ``stats``, where
+        given, gets ``bytes`` (read from the file: the member's stored
+        size, or its ``.npy`` header and the rows read of a stored member
+        read from a row on), ``route``, ``pieces`` (inflated concurrently;
+        0 for a stored member, 1 on route ``serial``) and ``serial_bytes``
+        (compressed bytes inflated on one thread)."""
+        if key not in self._members:
+            raise KeyError(f"{key} is not a file in the archive")
+        info, offset = self._members[key]
+        stats = {} if stats is None else stats
+        stats.update(bytes=info.compress_size, route="numpy", pieces=0,
+                     serial_bytes=0)
+        method = {zipfile.ZIP_STORED: self._read_stored,
+                  zipfile.ZIP_DEFLATED: self._read_deflated}.get(
+                      info.compress_type)
+        out = None
+        if method is not None and not info.flag_bits & 1:  # not encrypted
+            out = method(info, offset, row_start, stats, alloc or _empty)
+        if out is None:  # route ``serial`` or ``numpy``
+            out = self._npz[key]
+            out = out[row_start:] if row_start else out
+        with _READS_LOCK:
+            counts = MEMBER_READS[stats["route"]]
+            counts["members"] += 1
+            counts["bytes"] += stats["bytes"]
+        return out
+
+    def _map(self, fn, *args):
+        """``map(fn, *args)`` across the pool, or on this thread for one
+        item; the results in order."""
+        args = list(zip(*args))
+        if len(args) <= 1:
+            return [fn(*a) for a in args]
+        futures = [self._pool.submit(fn, *a) for a in args]
+        return [f.result() for f in futures]
+
+    def _read_range(self, dest: np.ndarray, offset: int,
+                    crc: bool) -> int | None:
+        """Fill ``dest`` from file offset ``offset`` in slices across the
+        pool; the CRC-32 of ``dest`` where ``crc``."""
+        n = len(dest)
+        parts = max(1, min(_WORKERS, -(-n // _SLICE_BYTES)))
+        bounds = [n * i // parts for i in range(parts + 1)]
+        view = memoryview(dest)
+
+        def part(a, b):
+            _pread_into(self._fd, view[a:b], offset + a)
+            return zlib.crc32(view[a:b]) if crc else None
+
+        crcs = self._map(part, bounds[:-1], bounds[1:])
+        if not crc:
+            return None
+        total = 0
+        for value, a, b in zip(crcs, bounds[:-1], bounds[1:]):
+            total = crc32_combine(total, value, b - a)
+        return total
+
+    def _read_stored(self, info, offset, row_start, stats, alloc):
+        head = np.empty(min(info.file_size, _HEADER_BYTES), np.uint8)
+        self._read_range(head, offset, crc=False)
+        layout = _plain_layout(head, info)
+        if layout is None:
+            return None
+        length, shape, dtype, row_bytes, nbytes = layout
+        stats.update(route="stored")
+        if row_start and shape:
+            rows = max(shape[0] - row_start, 0)
+            dest = alloc(rows * row_bytes)
+            if rows:
+                self._read_range(dest, offset + length + row_start * row_bytes,
+                                 crc=False)
+            stats["bytes"] = length + rows * row_bytes
+            return dest.view(dtype).reshape((rows,) + tuple(shape[1:]))
+        dest = alloc(nbytes)
+        crc = self._read_range(dest, offset + length, crc=True)
+        crc = crc32_combine(zlib.crc32(head[:length]), crc, nbytes)
+        if crc != info.CRC:
+            raise zipfile.BadZipFile(f"Bad CRC-32 for file {info.filename!r}")
+        return dest.view(dtype).reshape(shape)
+
+    def _read_deflated(self, info, offset, row_start, stats, alloc):
+        head = np.empty(min(info.compress_size, _HEADER_BYTES), np.uint8)
+        self._read_range(head, offset, crc=False)
+        try:  # the header from the stream's first 4 KiB
+            head = zlib.decompressobj(-15).decompress(head, _HEADER_BYTES)
+        except zlib.error:
+            return None
+        layout = _plain_layout(head, info)
+        if layout is None:
+            return None
+        length, shape, dtype, row_bytes, nbytes = layout
+        stats.update(route="serial", pieces=1, serial_bytes=info.compress_size)
+        if info.file_size <= _PIECE_BYTES:
+            return None  # one piece: left to np.load
+        comp = bytearray(info.compress_size)
+        view = memoryview(comp)
+        self._read_range(view, offset, crc=False)
+        # The pieces are handed to the pool as the scan finds them.
+        futures, start = [], 0
+        for end in _flush_points(comp):
+            if end >= len(comp):
+                break
+            futures.append(self._pool.submit(_inflate_piece, view[start:end],
+                                             False))
+            start = end
+        pieces = None
+        if futures:
+            futures.append(self._pool.submit(_inflate_piece, view[start:],
+                                             True))
+            pieces = [f.result() for f in futures]
+            if any(p is None for p in pieces):
+                pieces = None
+        if pieces is not None:
+            crc, size = 0, 0
+            for out, value in pieces:
+                crc = crc32_combine(crc, value, len(out))
+                size += len(out)
+            if size != info.file_size or crc != info.CRC:
+                pieces = None
+        if pieces is None:
+            return None  # left to np.load
+        stats.update(route="pieces", pieces=len(pieces), serial_bytes=0)
+        outs = [out for out, _ in pieces]
+        del comp, view, futures, pieces  # before the destination is made
+        dest = alloc(nbytes)
+        # Each output's share of the destination (the first less the
+        # header), copied across the pool.
+        starts = np.cumsum([0] + [len(o) for o in outs[:-1]]) - length
+
+        def place(out, at):
+            skip = max(0, -at)
+            src = np.frombuffer(out, np.uint8)[skip:]
+            dest[at + skip : at + skip + len(src)] = src
+
+        self._map(place, outs, [int(a) for a in starts])
+        arr = dest.view(dtype).reshape(shape)
+        return arr[row_start:] if row_start and shape else arr
+
+
 def load_reference_npz(path):
     """Load a reference npz into {'A': {...}, 'F': {...}, 'M': {...}} + meta.
 
     Accepts files produced by either package or the reference tool.
     Returns (passes dict, meta dict with is_nipt/trained_cutoff/has_*).
 
-    Members decompress on a thread pool (zlib releases the GIL): the big
-    index/distance/null tables are each hundreds of MB and dominate the
-    predict cold start otherwise.
+    Members are read by one :class:`NpzReader`, four at a time on a thread
+    pool besides the reader's own: the big index/distance/null tables are
+    each hundreds of MB and dominate the predict cold start otherwise.
     """
-    from concurrent.futures import ThreadPoolExecutor
-
-    npz = np.load(path, encoding="latin1", allow_pickle=True)
-    meta = {
-        "is_nipt": bool(npz["is_nipt"]),
-        "trained_cutoff": float(npz["trained_cutoff"]),
-        "has_female": bool(npz["has_female"]),
-        "has_male": bool(npz["has_male"]),
-    }
-    wanted = []
-    for gender in ("A", "F", "M"):
-        suffix = "" if gender == "A" else f".{gender}"
-        if f"bins_per_chr{suffix}" not in npz:
-            continue
-        wanted.extend((gender, key, f"{key}{suffix}") for key in PASS_KEYS)
-        wanted.extend(
-            (gender, key, f"{key}{suffix}")
-            for key in OPTIONAL_PASS_KEYS
-            if f"{key}{suffix}" in npz
-        )
-    with ThreadPoolExecutor(max_workers=4) as pool:
-        arrays = list(
-            pool.map(lambda w: np.load(
-                path, encoding="latin1", allow_pickle=True
-            )[w[2]], wanted)
-        )
+    with NpzReader(path) as reader, ThreadPoolExecutor(max_workers=4) as pool:
+        meta = _reference_meta(reader)
+        wanted = []
+        for gender in ("A", "F", "M"):
+            suffix = "" if gender == "A" else f".{gender}"
+            if f"bins_per_chr{suffix}" not in reader:
+                continue
+            wanted.extend((gender, key, f"{key}{suffix}") for key in PASS_KEYS)
+            wanted.extend(
+                (gender, key, f"{key}{suffix}")
+                for key in OPTIONAL_PASS_KEYS
+                if f"{key}{suffix}" in reader
+            )
+        arrays = list(pool.map(lambda w: reader.read(w[2]), wanted))
     passes: dict = {}
     for (gender, key, _), arr in zip(wanted, arrays):
         passes.setdefault(gender, {})[key] = arr
     return passes, meta
+
+
+def _reference_meta(reader: NpzReader) -> dict:
+    return {
+        "is_nipt": bool(reader.read("is_nipt")),
+        "trained_cutoff": float(reader.read("trained_cutoff")),
+        "has_female": bool(reader.read("has_female")),
+        "has_male": bool(reader.read("has_male")),
+    }
 
 
 #: Per-pass members small enough to load eagerly (everything except the
@@ -362,7 +735,7 @@ SMALL_PASS_KEYS = (
     "pca_mean",
 )
 
-def load_reference_small(path):
+def load_reference_small(reader: NpzReader):
     """Load a reference npz's meta + per-pass small members only.
 
     The predict path defers the bulk tables (indexes/distances/null
@@ -370,27 +743,25 @@ def load_reference_small(path):
     that stream them straight toward the device
     (:class:`wisecondorx_tpu_torch.models.ref_loader.ReferenceLoader`); this
     returns in milliseconds with everything stage control flow needs.
+    ``reader`` is an open :class:`NpzReader` of the file.  The members are
+    read one after another: each inflates through ``np.load``, whose
+    256 KiB reads hold the interpreter lock in between, so threads gain
+    nothing.
 
     Returns (passes dict gender -> {small keys}, meta dict).
     """
-    npz = np.load(path, encoding="latin1", allow_pickle=True)
-    meta = {
-        "is_nipt": bool(npz["is_nipt"]),
-        "trained_cutoff": float(npz["trained_cutoff"]),
-        "has_female": bool(npz["has_female"]),
-        "has_male": bool(npz["has_male"]),
-    }
+    meta = _reference_meta(reader)
     passes: dict = {}
     for gender in ("A", "F", "M"):
         suffix = "" if gender == "A" else f".{gender}"
-        if f"bins_per_chr{suffix}" not in npz:
+        if f"bins_per_chr{suffix}" not in reader:
             continue
         passes[gender] = {
-            key: npz[f"{key}{suffix}"] for key in SMALL_PASS_KEYS
+            key: reader.read(f"{key}{suffix}") for key in SMALL_PASS_KEYS
         }
         for key in OPTIONAL_PASS_KEYS:
-            if f"{key}{suffix}" in npz:
-                passes[gender][key] = npz[f"{key}{suffix}"]
+            if f"{key}{suffix}" in reader:
+                passes[gender][key] = reader.read(f"{key}{suffix}")
     return passes, meta
 
 
@@ -424,57 +795,19 @@ def verify_reference_npz(path, expected_keys=None) -> None:
 
 
 def load_member_rows(path, key, row_start: int, stats: dict | None = None):
-    """Load ``npz[key][row_start:]`` — reading only the tail bytes when
-    the member is STORED (adaptive-stored big tables admit random access
-    inside the zip), else falling back to a full load + slice.
+    """Load ``npz[key][row_start:]`` through a one-off :class:`NpzReader`:
+    only the tail bytes of a STORED member (adaptive-stored big tables
+    admit random access inside the zip), the whole of a deflated one.
 
     The gonosomal predict pass consumes only its chrX/chrY target rows
     (~5% of the table); on a stored member this turns a ~0.5 GB read
-    into ~10 MB.  ``stats["bytes"]``, where given, is set to the member's
-    bytes read from the file: its ``.npy`` header and the rows read, or
-    its whole stored size when it is read whole.
+    into ~10 MB.  ``stats``, where given, gets what
+    :meth:`NpzReader.read` reports: ``bytes`` read from the file (the
+    member's ``.npy`` header and the rows read, or its whole stored size
+    when it is read whole), ``route``, ``pieces`` and ``serial_bytes``.
     """
-    import zipfile
-
-    name = f"{key}.npy"
-    if stats is None:
-        stats = {}
-    try:
-        with zipfile.ZipFile(path) as zf:
-            info = zf.getinfo(name)
-            stats["bytes"] = info.compress_size
-            if info.compress_type != 0:
-                raise KeyError  # deflated: full load below
-            with zf.open(name) as member:
-                version = np.lib.format.read_magic(member)
-                readers = {
-                    (1, 0): np.lib.format.read_array_header_1_0,
-                    (2, 0): np.lib.format.read_array_header_2_0,
-                }
-                reader = readers.get(
-                    tuple(version), np.lib.format.read_array_header_2_0
-                )
-                shape, fortran, dtype = reader(member)
-                if fortran or dtype.hasobject or len(shape) == 0:
-                    raise KeyError
-                row_bytes = int(
-                    np.prod(shape[1:], dtype=np.int64)
-                ) * dtype.itemsize
-                rows = shape[0] - row_start
-                header = member.tell()
-                if rows <= 0:
-                    stats["bytes"] = header
-                    return np.empty((0,) + shape[1:], dtype=dtype)
-                member.seek(row_start * row_bytes, 1)
-                buf = member.read(rows * row_bytes)
-            stats["bytes"] = header + len(buf)
-            return np.frombuffer(buf, dtype=dtype).reshape(
-                (rows,) + shape[1:]
-            )
-    except (KeyError, OSError, ValueError):
-        return np.load(path, encoding="latin1", allow_pickle=True)[key][
-            row_start:
-        ]
+    with NpzReader(path) as reader:
+        return reader.read(key, row_start, stats)
 
 
 def reference_npz_headers(path):

@@ -42,7 +42,7 @@ import torch
 
 from wisecondorx_tpu_torch.genome import GenomeLayout, MaskedLayout
 from wisecondorx_tpu_torch.io.npz import (
-    load_member_rows,
+    NpzReader,
     load_reference_npz,
     load_reference_small,
 )
@@ -305,6 +305,11 @@ def build_pass_tables(ref_pass: dict, gender: str, cutoff: float,
     )
 
 
+def _pinned(nbytes: int) -> np.ndarray:
+    """A uint8 array of ``nbytes`` in pinned host memory."""
+    return torch.empty(nbytes, dtype=torch.uint8, pin_memory=True).numpy()
+
+
 def _wait(stream) -> torch.cuda.Event | None:
     """Record an event on ``stream`` and wait for it on the host; None
     without a stream (the CPU)."""
@@ -367,8 +372,12 @@ class ReferenceLoader:
     ``start`` reads the big members (indexes, distances, null ratios) of
     the autosomal pass and of the named gonosomal passes only (one for a
     predict, those a plate's samples resolve to for predict-batch), each
-    once, on a thread pool (zlib releases the interpreter lock); a
-    gonosomal pass reads its rows from its first target row on.  The
+    once, on a thread pool, through one :class:`NpzReader` (whose own pool
+    reads a stored member's slices and inflates a deflated member's
+    pieces); a gonosomal pass reads its rows from its first target row
+    on.  On a CUDA device whose context exists, indexes and distances are
+    read straight into pinned memory, which the upload then copies from
+    without staging.  The
     tables are built by :func:`build_pass_tables`, and a distance table is
     read only where it needs one (with the ``wcx_*`` caches at the default
     depth, or at an infinite cutoff, none is).  The ``[timing]`` stages of
@@ -378,17 +387,25 @@ class ReferenceLoader:
     ``warmup`` (a ``utils.warmup.Warmup``, or None) is joined before the
     first upload, and its error raised there.
 
-    The caller's own time in the loader is ``ref_loader.open`` (the small
-    members, read on the caller's thread) and ``ref_loader.wait`` (each
-    wait for the pool, its span attribute ``on`` naming what for:
-    ``tables.<pass>``, ``null.<pass>``, ``cutoff`` or ``close``)."""
+    The caller's own time in the loader is ``ref_loader.open`` (the
+    archive's directory and the small members, read on the caller's
+    thread) and ``ref_loader.wait`` (each wait for the pool, its span
+    attribute ``on`` naming what for: ``tables.<pass>``, ``null.<pass>``,
+    ``cutoff`` or ``close``).  Each member's span ``predict.load.<member>``
+    carries what :meth:`NpzReader.read` reports: ``bytes``, ``route``,
+    ``pieces`` and ``serial_bytes``."""
 
     def __init__(self, path, device: torch.device, warmup=None):
         self.path = path
         self.device = torch.device(device)
         self._warmup = warmup
         with stage_timer("ref_loader.open"):
-            self.passes, self.meta = load_reference_small(path)
+            self._reader = NpzReader(path)
+            try:
+                self.passes, self.meta = load_reference_small(self._reader)
+            except BaseException:
+                self._reader.close()
+                raise
         self._pool = ThreadPoolExecutor(max_workers=8,
                                         thread_name_prefix="wcx-ref-loader")
         self._futs: dict = {}
@@ -405,6 +422,7 @@ class ReferenceLoader:
         with stage_timer("ref_loader.wait") as span:
             span.add("on", "close")
             self._pool.shutdown(wait=True)
+            self._reader.close()
 
     def _result(self, key, on: str):
         """The result of the pool's future ``key``, the wait timed."""
@@ -414,11 +432,17 @@ class ReferenceLoader:
 
     def _member(self, gender: str, key: str, row_start: int = 0):
         suffix = "" if gender == "A" else f".{gender}"
+        # What the device reads goes straight into pinned memory; pinning
+        # before the context exists would wait for it (the warm-up makes
+        # it), so until then the upload stages it as before.
+        pinned = (key != "null_ratios" and self.device.type == "cuda"
+                  and torch.cuda.is_initialized())
         with stage_timer(f"predict.load.{key}{suffix}") as span:
             read: dict = {}
-            rows = load_member_rows(self.path, f"{key}{suffix}", row_start,
-                                    stats=read)
-            span.add("bytes", read["bytes"])
+            rows = self._reader.read(f"{key}{suffix}", row_start, stats=read,
+                                     alloc=_pinned if pinned else None)
+            for name in ("bytes", "route", "pieces", "serial_bytes"):
+                span.add(name, read[name])
             return rows
 
     def _cutoff(self, maskrepeats: int) -> float:
