@@ -14,7 +14,7 @@ Phases, each printing one JSON line on stdout (logs go to stderr):
    100 male controls, seed 0, written as convert-stage sample npz files,
    then the cases and the plate below from the same simulator;
 4. newref  -- ``wisecondorx_tpu_torch.cli newref --device cuda`` (one
-   process, no checkpoint: the pipelined passes), with its stages and peak
+   process, no checkpoint), with its stages and peak
    device memory;
 5. predict -- ``predict --bed`` (streamed reference loader, device CBS
    permutation stream) on a trisomy-21 sample (must call a chr21 gain, and
@@ -93,16 +93,15 @@ Phases, each printing one JSON line on stdout (logs go to stderr):
 11. checkpoint -- newref with ``--checkpoint-dir``, stopped in process right
    after it saves its first ``knn_A_*`` artifact (``NewrefCheckpoint.save``
    patched), then run again: it resumes, writes a reference equal in every
-   member to the newref phase's (the serial build equals the pipelined
-   one), removes the directory, and launches K1 fewer times than the full
-   build;
+   member to the newref phase's, removes the directory, and launches K1
+   fewer times than the full build;
 12. multidevice -- ``knn_search_multidevice`` on the A pass and
    ``predict_batch`` on the plate with the card listed twice (two parts,
    two host threads): equal bit for bit to one device;
 13. multiproc -- newref and predict-batch as two worker processes on the
    one card, each with torchrun's environment on 127.0.0.1 and a timeout:
-   process 0's reference (a serial build) equals the newref phase's
-   (pipelined) in every member, both
+   process 0's reference (searched on the calling thread, through the
+   all-gather) equals the newref phase's in every member, both
    processes launched both kernels, and the two plate shards together
    write every sample's outputs byte-equal to the predict_batch phase's;
 14. wide -- newref through the CLI on 720 controls (360 F + 360 M) at 50
@@ -2121,7 +2120,7 @@ def phase_checkpoint(files, ref, full_launches):
     emit("checkpoint", left_by_crash=left, crashed_launches=crashed,
          resumed_launches=resumed, full_launches=full_launches,
          crashed_seconds=round(crashed_s, 3), resumed_seconds=round(resumed_s, 3),
-         members_differing=diff, serial_vs_pipelined_equal=not diff,
+         members_differing=diff, equal_to_newref=not diff,
          directory_removed=not os.path.exists(ckdir))
     if not any(f.startswith("knn_A_") for f in left) or "prep_A.npz" not in left:
         raise AssertionError(f"the crash left {left}")
@@ -2152,11 +2151,14 @@ def phase_multidevice(ml, corrected, ref, plate, device):
 
     args = (corrected, ml.chr_of_masked_bin, ml.masked_chr_starts,
             ml.masked_bins_per_chr, REFSIZE)
-    one, _, one_s = launches_of(
-        "one-device search", lambda: knn_search_multidevice(*args, devices=[device]))
-    two, counts, two_s = launches_of(
-        "two-device search",
-        lambda: knn_search_multidevice(*args, devices=[device, device]))
+
+    def search(devices):
+        return tuple(t.cpu().numpy()
+                     for t in knn_search_multidevice(*args, devices=devices))
+
+    one, _, one_s = launches_of("one-device search", lambda: search([device]))
+    two, counts, two_s = launches_of("two-device search",
+                                     lambda: search([device, device]))
     knn_equal = all(np.array_equal(a, b) for a, b in zip(one, two))
     paths = [p for p, ev in plate if ev != "unreadable"]
     cfg = PredictConfig()
@@ -2285,7 +2287,7 @@ def phase_multiproc(files, ref, plate):
                 differing.append(base + suffix)
     emit("multiproc", newref_seconds=round(newref_s, 3),
          newref_ranks=newref, newref_members_differing=diff,
-         serial_vs_pipelined_equal=not diff,
+         equal_to_newref=not diff,
          batch_seconds=round(batch_s, 3), batch_ranks=batch,
          batch_exit_codes_wanted=want_codes, batch_files_differing=differing)
     for rep in newref:

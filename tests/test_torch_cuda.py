@@ -134,10 +134,10 @@ def test_wrapper_rejects_what_the_kernels_do_not_take(dev):
 
 
 def test_pipelined_newref_equals_the_checkpointed_one(dev, tmp_path, monkeypatch):
-    """newref's pipelined passes on the card equal the serial
-    (checkpointed) build in every member, bit for bit; the pipeline's K1
-    launches come from the search threads, each on a stream other than
-    the device's default one, and the serial build's from this thread."""
+    """newref's passes on the card, built without and with a checkpoint
+    directory, are equal in every member, bit for bit; in both builds the
+    K1 launches come from the search threads, each on a stream other than
+    the device's default one."""
     import copy
     import threading
 
@@ -161,15 +161,15 @@ def test_pipelined_newref_equals_the_checkpointed_one(dev, tmp_path, monkeypatch
         cfg = NewrefConfig(binsize=100000, refsize=50, checkpoint_dir=ckpt_dir)
         built[mode] = (build_reference([(copy.deepcopy(s), 100000) for s in samples],
                                        cfg, dev)[0], list(launches))
-    (piped, piped_launches), (serial, serial_launches) = built["pipelined"], built["checkpointed"]
-    assert piped_launches and serial_launches
-    assert all(name.startswith("wcx-search-") and side for name, side in piped_launches)
-    assert not any(side for _, side in serial_launches)
-    assert piped.keys() == serial.keys()
+    (piped, piped_launches), (ckpt, ckpt_launches) = built["pipelined"], built["checkpointed"]
+    for launched in (piped_launches, ckpt_launches):
+        assert launched
+        assert all(name.startswith("wcx-search-") and side for name, side in launched)
+    assert piped.keys() == ckpt.keys()
     for g in piped:
-        assert piped[g].keys() == serial[g].keys(), g
+        assert piped[g].keys() == ckpt[g].keys(), g
         for key in piped[g]:
-            a, b = np.asarray(piped[g][key]), np.asarray(serial[g][key])
+            a, b = np.asarray(piped[g][key]), np.asarray(ckpt[g][key])
             assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), f"{g}/{key}"
 
 

@@ -50,6 +50,7 @@ def test_three_part_split_equals_one_part_with_ties(row_range):
     one = sharded_knn.knn_search_multidevice(
         t64(data), chr_of_bin, starts, BINS, ref_size=25, row_range=row_range,
     )
+    one = tuple(t.cpu().numpy() for t in one)
     srt = np.sort(one[1], axis=1)
     assert (srt[:, -1] == srt[:, -2]).any()  # ties at the k boundary
     stats = {}
@@ -57,6 +58,7 @@ def test_three_part_split_equals_one_part_with_ties(row_range):
         t64(data), chr_of_bin, starts, BINS, ref_size=25, row_range=row_range,
         devices=[CPU] * 3, stats=stats,
     )
+    three = tuple(t.cpu().numpy() for t in three)
     np.testing.assert_array_equal(three[0], one[0])
     np.testing.assert_array_equal(three[1], one[1])
     r0, r1 = row_range or (0, sum(BINS))
@@ -121,6 +123,7 @@ def test_multihost_with_one_process_is_multidevice():
                                            ref_size=15, devices=[CPU] * 2)
     b = multihost.knn_search_multihost(data, chr_of_bin, starts, BINS,
                                        ref_size=15, devices=[CPU] * 2)
+    a, b = (tuple(t.cpu().numpy() for t in pair) for pair in (a, b))
     assert multihost.process_index_count() == (0, 1)
     assert multihost.all_agree(True) and not multihost.all_agree(False)
     for x, y in zip(a, b):

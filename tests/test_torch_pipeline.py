@@ -1,22 +1,25 @@
-"""newref's pipelined passes in the PyTorch port, on the CPU in float64
-(``CohortSim`` as in tests/test_torch_checkpoint.py):
+"""newref's one pipelined build in the PyTorch port, on the CPU in
+float64 (``CohortSim`` as in tests/test_torch_checkpoint.py):
 
-* a one-process build without a checkpoint directory runs the pipeline
-  (prep on the calling thread, search on ``wcx-search-<pass>`` threads,
-  predict caches on a pool) and equals the serial, checkpointed build in
-  every member, bit for bit, and the JAX package's build at
-  test_torch_slice.py's tolerances;
-* the null ratios computed from the search's index tensor equal those of
-  the serial build's host table, placeholder rows of a gonosomal pass
-  included;
-* the set of ``newref.*`` stage names equals the JAX package's on the
-  same cohort, pipelined and checkpointed;
+* a one-process build runs the pipeline (prep on the calling thread,
+  search on ``wcx-search-<pass>`` threads, predict caches on a pool),
+  with or without a checkpoint directory; the checkpointed build equals
+  the plain one in every member, bit for bit, and the plain one equals
+  the JAX package's build at test_torch_slice.py's tolerances;
+* a search whose rows come to the host (from saved chunks, or an
+  all-gather) and are uploaded again gives the indexes, distances and
+  null ratios of the search fed directly, placeholder rows of a
+  gonosomal pass included;
+* the set of ``newref.*`` stage names equals the JAX package's pipelined
+  build's on the same cohort, with and without a checkpoint;
 * a search that fails makes ``build_reference`` and the ``newref`` CLI
   fail with its error and leaves no search thread alive;
-* a multi-process build stays serial.
+* a multi-process build runs its searches on the calling thread, in plan
+  order, under the same stage names, and builds the same reference.
 """
 
 import copy
+import os
 import threading
 
 import numpy as np
@@ -85,7 +88,26 @@ def _assert_passes_equal(a, b):
 
 
 def test_pipelined_build_equals_the_serial_build(builds):
+    """The checkpointed build, which saves its artifacts as it goes,
+    equals the plain build in every member, bit for bit."""
     _assert_passes_equal(builds["pipelined"][0], builds["checkpointed"][0])
+
+
+def test_checkpointed_build_searches_on_search_threads(cohort, tmp_path,
+                                                       monkeypatch):
+    """With a checkpoint the searches still run on their own threads,
+    while the calling thread preps the next pass."""
+    seen = []
+    search = reference._search
+
+    def spy(p, *args, **kwargs):
+        seen.append((p.gender, threading.current_thread().name))
+        return search(p, *args, **kwargs)
+
+    monkeypatch.setattr(reference, "_search", spy)
+    build_reference(_copy(cohort), _cfg(str(tmp_path / "ck")), CPU)
+    assert sorted(seen) == [(g, f"wcx-search-{g}") for g in "AFM"]
+    assert not _search_threads()
 
 
 def test_pipelined_build_matches_jax(cohort, builds):
@@ -113,10 +135,14 @@ def test_pipelined_build_matches_jax(cohort, builds):
 
 
 @pytest.mark.parametrize("gender", ["A", "F"])
-def test_null_ratios_from_the_index_tensor_equal_the_host_table(cohort, gender):
-    """One prepped pass searched both ways: the pipeline's device search
-    (null ratios from the index tensor, ``placeholder_rows`` prepended on
-    the device) and the serial build's host-table search."""
+def test_null_ratios_from_the_index_tensor_equal_the_host_table(
+        cohort, gender, tmp_path, monkeypatch):
+    """One prepped pass searched three ways: directly (the device tables
+    of one search), from a row chunk saved as a checkpoint artifact and
+    then restored, and through the multi-process route
+    (``process_index_count`` patched; the all-gather of one process is
+    the search itself).  The last two place host rows on the device
+    before the null ratios."""
     cfg = _cfg()
     matrix, layout, genders, _, _ = reference.cohort_matrix(_copy(cohort), cfg)
     cols = (np.ones(len(genders), bool) if gender == "A"
@@ -125,44 +151,57 @@ def test_null_ratios_from_the_index_tensor_equal_the_host_table(cohort, gender):
     prepped = reference._prep_pass(
         gender, torch.as_tensor(matrix), cols, layout, total_mask, cfg,
         lambda g, n: np.random.default_rng([5, ord(g)]).choice(n, 6, replace=False),
+        reference.NewrefCheckpoint(None),
     )
     r0 = prepped.first_row
     assert (r0 > 0) == (gender != "A")
-    host = reference._search_host(prepped, cfg, [CPU],
-                                  reference.NewrefCheckpoint(None))
-    device = reference._search_device(prepped, cfg, [CPU], None,
-                                      threading.Event())
-    assert host.keys() == device.keys()
-    for key in host:
-        np.testing.assert_array_equal(device[key], host[key], err_msg=key)
-        assert np.asarray(device[key]).dtype == np.asarray(host[key]).dtype
-    assert (device["indexes"][:r0] == 0).all()
-    assert (device["distances"][:r0] == 1.0).all()
+
+    def search(ckpt):
+        return reference._search(prepped, cfg, [CPU], ckpt, None,
+                                 threading.Event())
+
+    direct = search(reference.NewrefCheckpoint(None))
+    ck = reference.NewrefCheckpoint(str(tmp_path / "ck"), "fp")
+    saved = search(ck)
+    chunks = [f for f in os.listdir(ck.dir) if f.startswith("knn_")]
+    assert chunks == [f"knn_{gender}_{r0}_{prepped.ml.n_masked}.npz"]
+    with monkeypatch.context() as mp:  # the chunk from its artifact now
+        mp.setattr(reference, "knn_search_multihost", None)
+        restored = search(ck)
+    with monkeypatch.context() as mp:
+        mp.setattr(reference, "process_index_count", lambda: (0, 2))
+        gathered = search(reference.NewrefCheckpoint(None))
+    for got in (saved, restored, gathered):
+        assert got.keys() == direct.keys()
+        for key in direct:
+            np.testing.assert_array_equal(got[key], direct[key], err_msg=key)
+            assert np.asarray(got[key]).dtype == np.asarray(direct[key]).dtype
+        assert (got["indexes"][:r0] == 0).all()
+        assert (got["distances"][:r0] == 1.0).all()
 
 
-def test_stage_names_equal_the_jax_package(cohort, builds, tmp_path):
-    for mode, ckpt_dir in (("pipelined", None),
-                           ("checkpointed", str(tmp_path / "jax_ck"))):
-        jlog.reset_stage_times()
-        jax_build(_copy(cohort), JaxConfig(binsize=100000, refsize=20,
-                                           col_tile=128,
-                                           checkpoint_dir=ckpt_dir))
-        want = {s for s in jlog.stage_times() if s.startswith("newref.")}
+def test_stage_names_equal_the_jax_package(cohort, builds):
+    """Both port builds, plain and checkpointed, keep the JAX package's
+    pipelined stage names."""
+    jlog.reset_stage_times()
+    jax_build(_copy(cohort), JaxConfig(binsize=100000, refsize=20,
+                                       col_tile=128))
+    want = {s for s in jlog.stage_times() if s.startswith("newref.")}
+    assert "newref.pass_F.prep" in want
+    for mode in ("pipelined", "checkpointed"):
         got = {s for s in builds[mode][1] if s.startswith("newref.")}
         assert got == want, mode
-    assert "newref.pass_F.prep" in builds["pipelined"][1]
-    assert "newref.pass_F" in builds["checkpointed"][1]
 
 
 def _failing_search_in_pass_f(monkeypatch):
-    search = reference._search_device
+    search = reference._search
 
     def failing(p, *args, **kwargs):
         if p.gender == "F":
             raise RuntimeError("search failed in pass F")
         return search(p, *args, **kwargs)
 
-    monkeypatch.setattr(reference, "_search_device", failing)
+    monkeypatch.setattr(reference, "_search", failing)
 
 
 def test_failing_search_fails_the_build(cohort, monkeypatch):
@@ -188,15 +227,23 @@ def test_failing_search_fails_the_cli(cohort, tmp_path, monkeypatch):
 
 
 def test_multi_process_build_stays_serial(cohort, builds, monkeypatch):
-    """With two processes (``process_index_count`` patched; the search
-    itself sees one) the passes run one after another on this thread,
-    under the serial stage names, and the reference is the same."""
+    """With two processes (``process_index_count`` patched; the all-gather
+    itself sees one) no search thread starts: the searches run on this
+    thread in plan order, under the one-process stage names, and the
+    reference is the same."""
     monkeypatch.setattr(reference, "process_index_count", lambda: (0, 2))
-    started = []
+    started, seen = [], []
     monkeypatch.setattr(reference, "_DaemonFuture",
                         lambda *a, **k: started.append(a))
+    search = reference._search
+
+    def spy(p, *args, **kwargs):
+        seen.append((p.gender, threading.current_thread()))
+        return search(p, *args, **kwargs)
+
+    monkeypatch.setattr(reference, "_search", spy)
     passes, names = _build(cohort, _cfg())
     assert not started
-    assert {"newref.pass_A", "newref.pass_A.knn", "newref.pass_M.nulls"} <= names
-    assert not any(s.endswith((".prep", ".search")) for s in names)
+    assert seen == [(g, threading.current_thread()) for g in "AFM"]
+    assert names == builds["pipelined"][1]
     _assert_passes_equal(passes, builds["pipelined"][0])

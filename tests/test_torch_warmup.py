@@ -109,7 +109,7 @@ def _record(monkeypatch, events):
     from wisecondorx_tpu_torch import cli
 
     log(cli, "load_sample_npz", "load")
-    log(reference, "_build_pipelined", "device")
+    log(reference, "_build_passes", "device")
     log(ref_loader, "build_pass_tables", "device")
 
 

@@ -11,41 +11,43 @@ Quirk kept (SURVEY.md 2.9): the PCA-distance filter mutates the *shared*
 total mask through a slice view, so bins the A pass drops are absent from
 the later F/M passes too.
 
-The passes are pipelined as in the JAX package.  A pass splits into a
-*prep* (normalization, PCA and the filter; the filter mutates the shared
-mask, so the preps run one after another on the calling thread) and a
-*search* (KNN, null ratios, the tables' download), which reads only the
-pass's own snapshot and runs on a daemon thread ``wcx-search-<pass>``
-while the next pass preps.  On a CUDA device the search runs on a stream
-of its own, after an event recorded when its prep finished; the index
-table stays on the device for the null ratios, and the tables come back
-into pinned host memory on a copy stream while the null ratios compute.
-Each finished pass's predict caches (host float64) run on a two-worker
-pool.  Stages: ``newref.pass_<g>.prep`` (holding ``.pca``), ``.search``
-(the wait for the search), ``.knn`` and ``.nulls`` (timed on the search
-thread and never traced: its kernels land in whatever stage the calling
-thread traces), ``newref.predict_cache`` (the wait for the caches) and
-``newref.distok_cache``.  Inside ``.knn`` the search thread's spans (not
-stages: ``utils.log.span``) ``knn.search`` (the search itself),
-``knn.nulls`` (queuing the null ratios) and ``knn.download`` (the tables'
-download) tell its parts apart, each with the attribute ``pass``; a
-serial build has ``knn.search`` around its searches.
+Every build pipelines its passes through one loop.  A pass splits into
+a *prep* (normalization, PCA and the filter; the filter mutates the
+shared mask, so the preps run one after another on the calling thread)
+and a *search* (KNN, null ratios, the tables' download), which reads
+only the pass's own snapshot.  In one process the search runs on a
+daemon thread ``wcx-search-<pass>`` while the next pass preps.  In a
+multi-process run (``torchrun``-style) the KNN rows split over every
+process and each process's devices and meet in one all-gather
+(parallel/multihost.py), which every process must reach in the same
+order: there the searches run on the calling thread, in plan order.  On
+a CUDA device the search runs on a stream of its own, after an event
+recorded when its prep finished; the index table stays on the device for
+the null ratios, and the tables come back into pinned host memory on a
+copy stream while the null ratios compute.  Each finished pass's predict
+caches (host float64) run on a two-worker pool.  Stages:
+``newref.pass_<g>.prep`` (holding ``.pca``), ``.search`` (the wait for
+the search), ``.knn`` and ``.nulls`` (timed where the search runs and
+never traced: its kernels land in whatever stage the calling thread
+traces), ``newref.predict_cache`` (the wait for the caches) and
+``newref.distok_cache``.  Inside ``.knn`` the spans (not stages:
+``utils.log.span``) ``knn.search`` (the search itself), ``knn.nulls``
+(queuing the null ratios) and ``knn.download`` (the tables' download)
+tell its parts apart, each with the attribute ``pass``.
 
-A multi-process run and a checkpointed run build the passes one after
-another instead (the JAX package's rule): the KNN search splits its rows
-over every process of a ``torchrun``-style run and over each process's
-devices, with one all-gather that every process must reach in the same
-order (parallel/multihost.py); with a checkpoint directory it runs in row
-chunks whose results, like each pass's PCA and each finished pass, are
-saved as they complete (utils/checkpoint.py), so a crashed build re-run
-with the same inputs resumes after its last saved stage.  Either build
-equals the pipelined one bit for bit.
+With a checkpoint directory (utils/checkpoint.py) each pass's PCA, each
+row chunk of its search and each finished pass are saved as they
+complete, from whichever thread made them, so a crashed build re-run
+with the same inputs resumes after its last saved stage.  Every build,
+checkpointed, resumed or multi-process, equals the one-process build
+bit for bit.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import logging
 import os
 import sys
@@ -185,12 +187,8 @@ def build_reference(samples_with_binsize: list[tuple[dict, int]],
           else contextlib.nullcontext()):
         cohort = torch.as_tensor(matrix, dtype=work_dtype(device),
                                  device=device)
-    args = (plan, cohort, layout, total_mask, cfg, _null_chooser,
-            devices or [device])
-    if process_index_count()[1] == 1 and not ckpt.enabled:
-        passes = _build_pipelined(*args)
-    else:
-        passes = _build_serial(*args, ckpt)
+    passes = _build_passes(plan, cohort, layout, total_mask, cfg,
+                           _null_chooser, devices or [device], ckpt)
 
     # Bit-packed distance < cutoff masks at the default --maskrepeats 5.
     cutoffs = passes["A"]["wcx_cutoffs"]
@@ -216,40 +214,61 @@ def build_reference(samples_with_binsize: list[tuple[dict, int]],
     return passes, meta
 
 
-def _build_pipelined(plan, cohort, layout, total_mask, cfg, null_chooser,
-                     devices):
+def _build_passes(plan, cohort, layout, total_mask, cfg, null_chooser,
+                  devices, ckpt):
     """Every pass's prep on this thread, one after another; each pass's
-    search on its own daemon thread, started as soon as its prep is done;
-    each pass's predict caches on a two-worker pool, submitted by its
-    search thread as the search finishes.  On an error anywhere the
+    search started as soon as its prep is done, on its own daemon thread
+    (several processes: on this thread when its result is collected, in
+    plan order); each pass's predict caches on a two-worker pool,
+    submitted as its search finishes.  A pass the checkpoint holds whole
+    is restored instead, and with a checkpoint every other pass is saved
+    with its caches as soon as it is complete.  On an error anywhere the
     running searches stop at their next step and are joined, and the
     error is raised."""
     passes, searches, caches = {}, {}, {}
     stop = threading.Event()
+    inline = process_index_count()[1] > 1
     pool = ThreadPoolExecutor(max_workers=2,
                               thread_name_prefix="wcx-predict-cache")
     switch_interval = sys.getswitchinterval()
     sys.setswitchinterval(PIPELINE_SWITCH_INTERVAL)
 
     def search_then_cache(prepped, ready):
-        built = _search_device(prepped, cfg, devices, ready, stop)
+        built = _search(prepped, cfg, devices, ckpt, ready, stop)
         return built, pool.submit(carry(_predict_cache), prepped.gender,
                                   built["distances"])
 
     try:
         for gender, cols in plan:
+            saved = _restore(ckpt, f"pass_{gender}")
+            if saved is not None:
+                logging.info("Pass %s restored from checkpoint", gender)
+                # The PCA-distance filter mutated the shared mask during
+                # this pass; replay that mutation for the later passes.
+                after = saved["total_mask_after"]
+                total_mask[: len(after)] &= after
+                passes[gender] = {k: saved[k] for k in _PASS_KEYS if k in saved}
+                passes[gender]["binsize"] = int(saved["binsize"])
+                continue
             with stage_timer(f"newref.pass_{gender}.prep"):
                 prepped = _prep_pass(gender, cohort, cols, layout,
-                                     total_mask, cfg, null_chooser)
+                                     total_mask, cfg, null_chooser, ckpt)
                 ready = _record_event(prepped.corrected)
-            searches[gender] = _DaemonFuture(
-                lambda p=prepped, r=ready: search_then_cache(p, r),
-                name=f"wcx-search-{gender}",
-            )
-            del prepped, ready  # the search thread holds the pass now
+            run = functools.partial(search_then_cache, prepped, ready)
+            searches[gender] = (_Inline(run) if inline else _DaemonFuture(
+                run, name=f"wcx-search-{gender}"))
+            del prepped, ready, run  # the search holds the pass now
         for gender, fut in searches.items():
             with stage_timer(f"newref.pass_{gender}.search"):
                 passes[gender], caches[gender] = fut.result()
+            if ckpt.enabled:
+                with stage_timer("newref.predict_cache"):
+                    passes[gender].update(caches.pop(gender).result())
+                # The pass's own mask: the later passes' preps may have
+                # mutated the shared one since.
+                ckpt.save(f"pass_{gender}",
+                          total_mask_after=passes[gender]["mask"],
+                          **passes[gender])
         with stage_timer("newref.predict_cache"):
             for gender, fut in caches.items():
                 passes[gender].update(fut.result())
@@ -261,37 +280,23 @@ def _build_pipelined(plan, cohort, layout, total_mask, cfg, null_chooser,
     finally:
         pool.shutdown(cancel_futures=True)
         sys.setswitchinterval(switch_interval)
-    return passes
+    # In plan order, whichever passes were restored: the writer keeps it.
+    return {gender: passes[gender] for gender, _ in plan}
 
 
-def _build_serial(plan, cohort, layout, total_mask, cfg, null_chooser,
-                  devices, ckpt):
-    """The passes one after another (a multi-process or checkpointed
-    build), each saved with its predict caches as it completes."""
-    passes = {}
-    for gender, cols in plan:
-        saved = _restore(ckpt, f"pass_{gender}")
-        if saved is not None:
-            logging.info("Pass %s restored from checkpoint", gender)
-            # The PCA-distance filter mutated the shared mask during this
-            # pass; replay that mutation for the later passes.
-            after = saved["total_mask_after"]
-            total_mask[: len(after)] &= after
-            passes[gender] = {k: saved[k] for k in _PASS_KEYS if k in saved}
-            passes[gender]["binsize"] = int(saved["binsize"])
-            continue
-        with stage_timer(f"newref.pass_{gender}"):
-            prepped = _prep_pass(gender, cohort, cols, layout, total_mask,
-                                 cfg, null_chooser, ckpt)
-            passes[gender] = _search_host(prepped, cfg, devices, ckpt)
-        with stage_timer("newref.predict_cache"):
-            passes[gender].update(
-                _predict_cache(gender, passes[gender]["distances"])
-            )
-        pass_bins = layout.truncated(LAST_CHR[gender]).total_bins
-        ckpt.save(f"pass_{gender}", total_mask_after=total_mask[:pass_bins],
-                  **passes[gender])
-    return passes
+class _Inline:
+    """A search of a multi-process run: it runs on the calling thread
+    when its result is asked for, so every process reaches the search's
+    collectives in the same order."""
+
+    def __init__(self, fn):
+        self._fn = fn
+
+    def result(self):
+        return self._fn()
+
+    def wait(self):
+        pass
 
 
 class _Stopped(Exception):
@@ -385,14 +390,14 @@ class _Prepped:
 
 
 def _prep_pass(gender, cohort, cols, layout, total_mask, cfg, null_chooser,
-               ckpt=None):
+               ckpt):
     """The serial part of a pass: its PCA (restored from ``ckpt`` when
     saved there) and the PCA-distance filter, which mutates
     ``total_mask`` in place through the ``pass_mask`` view."""
     tl = layout.truncated(LAST_CHR[gender])
     pass_mask = total_mask[: tl.total_bins]  # view: the aliasing is intended
 
-    prep = _restore(ckpt, f"prep_{gender}") if ckpt is not None else None
+    prep = _restore(ckpt, f"prep_{gender}")
     if prep is not None:
         logging.info("Pass %s: PCA restored from checkpoint", gender)
         pass_mask &= prep["mask_after"]  # replay the filter's mutation
@@ -401,7 +406,7 @@ def _prep_pass(gender, cohort, cols, layout, total_mask, cfg, null_chooser,
     else:
         corrected, components, mean = _pass_pca(gender, cohort, cols, tl,
                                                 pass_mask, cfg)
-        if ckpt is not None and ckpt.enabled:
+        if ckpt.enabled:
             ckpt.save(f"prep_{gender}", corrected=corrected.cpu().numpy(),
                       components=components, mean=mean, mask_after=pass_mask)
     return _Prepped(gender, corrected, components, mean,
@@ -409,68 +414,13 @@ def _prep_pass(gender, cohort, cols, layout, total_mask, cfg, null_chooser,
                     np.asarray(null_chooser(gender, corrected.shape[1])))
 
 
-def _search_host(p: _Prepped, cfg, devices, ckpt):
-    """The search of a serial build: the KNN rows into host tables (in
-    row chunks saved as artifacts with a checkpoint, in one search over
-    every process otherwise), then the null ratios from the whole
-    gathered table."""
-    ml, r0 = p.ml, p.first_row
-    n_masked = ml.n_masked
-    indexes = np.zeros((n_masked, cfg.refsize), dtype=np.int32)
-    # The kernel path returns float32 distances, the exact path the data's
-    # type.
-    np_dtype = (np.float32 if p.corrected.is_cuda
-                or p.corrected.dtype == torch.float32 else np.float64)
-    distances = np.ones((n_masked, cfg.refsize), dtype=np_dtype)
-
-    def search(a, b):
-        stats: dict = {}
-        with span("knn.search") as part:
-            part.add("pass", p.gender)
-            idx, dist = knn_search_multihost(
-                p.corrected, ml.chr_of_masked_bin, ml.masked_chr_starts,
-                ml.masked_bins_per_chr, ref_size=cfg.refsize,
-                row_range=(a, b), devices=devices, stats=stats,
-            )
-        _log_reruns(p.gender, stats)
-        return idx, dist
-
-    if ckpt.enabled:
-        # Row chunks of one artifact each: a killed build loses at most
-        # one chunk of search.
-        step = max(1024, cfg.knn_checkpoint_rows)
-        for a in range(r0, n_masked, step):
-            b = min(a + step, n_masked)
-            part = _restore(ckpt, f"knn_{p.gender}_{a}_{b}")
-            if part is None:
-                idx, dist = search(a, b)
-                ckpt.save(f"knn_{p.gender}_{a}_{b}", idx=idx, dist=dist)
-            else:
-                idx, dist = part["idx"], part["dist"]
-            indexes[a:b] = idx
-            distances[a:b] = dist
-    else:
-        with stage_timer(f"newref.pass_{p.gender}.knn"):
-            if r0 < n_masked:
-                indexes[r0:], distances[r0:] = search(r0, n_masked)
-
-    with stage_timer(f"newref.pass_{p.gender}.nulls"):
-        null_ratios = knn_ops.compute_null_ratios(
-            p.corrected,
-            torch.as_tensor(indexes[r0:], device=p.corrected.device),
-            p.chosen, placeholder_rows=r0,
-        ).cpu().numpy()
-    return _pass_dict(p, cfg, indexes, distances, null_ratios)
-
-
-def _search_device(p: _Prepped, cfg, devices, ready, stop):
-    """The search of a pipelined pass, on its search thread: the KNN
-    tables stay on the pass's device, the null ratios are computed from
-    the device index table, and the tables' download runs beside them.
-    On a CUDA device all of it runs on a stream of this thread's own,
-    which first waits for ``ready`` (recorded after the prep produced
-    ``corrected`` on the prep's stream).  ``stop`` set: raise before the
-    next step."""
+def _search(p: _Prepped, cfg, devices, ckpt, ready, stop):
+    """A pass's search: the KNN tables on the pass's device, the null
+    ratios computed from the device index table, and the tables' download
+    beside them.  On a CUDA device all of it runs on a stream of this
+    thread's own, which first waits for ``ready`` (recorded after the
+    prep produced ``corrected`` on the prep's stream).  ``stop`` set:
+    raise before the next step."""
     dev = p.corrected.device
     ml, r0 = p.ml, p.first_row
     n_masked = ml.n_masked
@@ -487,14 +437,7 @@ def _search_device(p: _Prepped, cfg, devices, ready, stop):
         with stage_timer(f"newref.pass_{p.gender}.knn", trace=False):
             with span("knn.search") as part:
                 part.add("pass", p.gender)
-                stats: dict = {}
-                idx, dist = knn_search_multidevice(
-                    p.corrected, ml.chr_of_masked_bin, ml.masked_chr_starts,
-                    ml.masked_bins_per_chr, ref_size=cfg.refsize,
-                    row_range=(r0, n_masked), devices=devices, stats=stats,
-                    out_device=dev,
-                )
-                _log_reruns(p.gender, stats)
+                idx, dist = _knn_rows(p, cfg, devices, ckpt, stop)
                 idx32 = idx.to(torch.int32)
                 searched = _record_event(idx32)
             _check(stop)
@@ -520,6 +463,49 @@ def _search_device(p: _Prepped, cfg, devices, ready, stop):
                 nulls_done.synchronize()
             null_ratios = nulls_host.numpy()
     return _pass_dict(p, cfg, indexes, distances, null_ratios)
+
+
+def _knn_rows(p: _Prepped, cfg, devices, ckpt, stop):
+    """Rows ``first_row:`` of the pass's KNN tables (indexes int64),
+    gathered on its device.  In one process without a checkpoint, one
+    search over the process's devices.  Otherwise the rows come to the
+    host: in row chunks, each restored or searched and then saved as an
+    artifact, with a checkpoint; through every process's all-gather in a
+    multi-process run (chunk by chunk with a checkpoint).  The host rows
+    are placed on the device once."""
+    ml, r0, n_masked = p.ml, p.first_row, p.ml.n_masked
+    multi = process_index_count()[1] > 1
+
+    def search(a, b, rows):
+        stats: dict = {}
+        idx, dist = rows(
+            p.corrected, ml.chr_of_masked_bin, ml.masked_chr_starts,
+            ml.masked_bins_per_chr, ref_size=cfg.refsize, row_range=(a, b),
+            devices=devices, stats=stats,
+        )
+        _log_reruns(p.gender, stats)
+        return idx, dist
+
+    if not (multi or ckpt.enabled) or r0 == n_masked:
+        # A pass without rows to search has no chunk and no all-gather.
+        return search(r0, n_masked, knn_search_multidevice)
+    # Row chunks of one artifact each: a killed build loses at most one
+    # chunk of search.
+    step = (max(1024, cfg.knn_checkpoint_rows) if ckpt.enabled
+            else n_masked - r0)
+    chunks = []
+    for a in range(r0, n_masked, step):
+        _check(stop)
+        b = min(a + step, n_masked)
+        part = _restore(ckpt, f"knn_{p.gender}_{a}_{b}")
+        if part is None:
+            idx, dist = search(a, b, knn_search_multihost)
+            part = {"idx": idx.cpu().numpy(), "dist": dist.cpu().numpy()}
+            ckpt.save(f"knn_{p.gender}_{a}_{b}", **part)
+        chunks.append((part["idx"], part["dist"]))
+    dev = p.corrected.device
+    return tuple(torch.as_tensor(np.concatenate(c), device=dev)
+                 for c in zip(*chunks))
 
 
 def _check(stop):

@@ -93,9 +93,9 @@ def knn_search_multihost(data: torch.Tensor, chr_of_bin, masked_chr_starts,
     """KNN over every process and, within each, over ``devices``: the
     rows split once over the processes and then per device; one
     all-gather of the parts, padded to the widest, gives every process
-    the whole table.  Returns host numpy arrays (indexes int64, distances
-    in ``data``'s dtype); with one process it is
-    :func:`knn_search_multidevice`."""
+    the whole table.  Returns tensors (indexes int64, distances in the
+    search's dtype): the gathered table on the host; with one process it
+    is :func:`knn_search_multidevice`, on ``data``'s device."""
     rank, world = process_index_count()
     if world <= 1:
         return knn_search_multidevice(
@@ -113,13 +113,12 @@ def knn_search_multihost(data: torch.Tensor, chr_of_bin, masked_chr_starts,
         devices=devices, stats=part_stats,
     )
     widest = int(np.max(np.diff(bounds)))
-    # Indexes travel as int64 and distances in their own type: no float
-    # cast of an index.
+    # gloo exchanges host memory.  Indexes travel as int64 and distances
+    # in their own type: no float cast of an index.
     send_i = torch.full((widest, ref_size), -1, dtype=torch.int64)
-    send_d = torch.zeros((widest, ref_size),
-                         dtype=torch.from_numpy(dist_).dtype)
-    send_i[: len(idx)] = torch.from_numpy(idx)
-    send_d[: len(dist_)] = torch.from_numpy(dist_)
+    send_d = torch.zeros((widest, ref_size), dtype=dist_.dtype)
+    send_i[: len(idx)] = idx
+    send_d[: len(dist_)] = dist_
     got_i = [torch.empty_like(send_i) for _ in range(world)]
     got_d = [torch.empty_like(send_d) for _ in range(world)]
     dist.all_gather(got_i, send_i)
@@ -129,5 +128,5 @@ def knn_search_multihost(data: torch.Tensor, chr_of_bin, masked_chr_starts,
         flagged = torch.tensor([part_stats.get("flagged_rows", 0)])
         dist.all_reduce(flagged)
         stats.update(flagged_rows=int(flagged.item()), n_rows=r1 - r0)
-    return (np.concatenate([g[:s].numpy() for g, s in zip(got_i, sizes)]),
-            np.concatenate([g[:s].numpy() for g, s in zip(got_d, sizes)]))
+    return (torch.cat([g[:s] for g, s in zip(got_i, sizes)]),
+            torch.cat([g[:s] for g, s in zip(got_d, sizes)]))

@@ -7,9 +7,9 @@ device runs the full single-device search (:func:`ops.knn.knn_search`:
 K1 + K2 on a CUDA device) on its own copy of the data.  Rows are
 independent and every product is computed at a shape that does not
 depend on the split (ops/knn.py, ops/knn_cuda.py), so the result equals
-the one-device search bit for bit.  The result comes back as host arrays,
-or gathered on one device for newref's pipelined passes, whose null
-ratios read the index table where it lies.  The JAX package's GSPMD variant
+the one-device search bit for bit.  The result comes back gathered on
+the data's device, where newref's null ratios read the index table; a
+caller that wants host arrays copies it there.  The JAX package's GSPMD variant
 (``knn_search_sharded``) serves only its mesh dry run and is not ported.
 """
 
@@ -41,16 +41,14 @@ def _indexed(dev) -> torch.device:
 def knn_search_multidevice(data: torch.Tensor, chr_of_bin, masked_chr_starts,
                            masked_bins_per_chr, ref_size: int = 300,
                            row_range: tuple[int, int] | None = None,
-                           devices=None, stats: dict | None = None,
-                           out_device=None):
+                           devices=None, stats: dict | None = None):
     """Row-partitioned KNN over ``devices`` (default: ``data``'s device).
 
-    Same contract as :func:`ops.knn.knn_search`, returned as host numpy
-    arrays (indexes int64, distances in ``data``'s dtype), or with
-    ``out_device`` as tensors gathered on that device, ordered after the
-    search on the caller's current stream there.  One part only when
-    there is one device or fewer than 4 rows per device; it runs on the
-    calling thread and its current stream.  Several parts run on one
+    Same contract as :func:`ops.knn.knn_search`: tensors (indexes int64,
+    distances in the search's dtype) gathered on ``data``'s device,
+    ordered after the search on the caller's current stream there.  One
+    part only when there is one device or fewer than 4 rows per device;
+    it runs on the calling thread and its current stream.  Several parts run on one
     thread each, and a part on a CUDA device on a stream of its own that
     first waits for the caller's current stream there (a new thread
     starts on the device's default stream).  ``stats`` receives the
@@ -82,8 +80,6 @@ def knn_search_multidevice(data: torch.Tensor, chr_of_bin, masked_chr_starts,
                 masked_bins_per_chr, ref_size=ref_size, row_range=(a, b),
                 stats=part_stats,
             )
-            if out_device is None:
-                return idx.cpu().numpy(), dist.cpu().numpy(), part_stats, None
             done = None
             if stream is not None:
                 done = torch.cuda.Event()
@@ -103,10 +99,6 @@ def knn_search_multidevice(data: torch.Tensor, chr_of_bin, masked_chr_starts,
             flagged_rows=sum(p[2].get("flagged_rows", 0) for p in parts),
             n_rows=r1 - r0,
         )
-    if out_device is None:
-        return (np.concatenate([p[0] for p in parts]),
-                np.concatenate([p[1] for p in parts]))
-    out_device = _indexed(out_device)
     gathered = []
     for idx, dist, _, done in parts:
         if done is not None:
@@ -115,7 +107,7 @@ def knn_search_multidevice(data: torch.Tensor, chr_of_bin, masked_chr_starts,
             caller.wait_event(done)
             idx.record_stream(caller)
             dist.record_stream(caller)
-        gathered.append((idx.to(out_device), dist.to(out_device)))
+        gathered.append((idx.to(data.device), dist.to(data.device)))
     if len(gathered) == 1:
         return gathered[0]
     return (torch.cat([g[0] for g in gathered]),
