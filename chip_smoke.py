@@ -32,7 +32,11 @@ Phases, each printing one JSON line on stdout (logs go to stderr):
    ``cbs_rounds``: the CBS rounds of both predicts, which must all be
    device-stream rounds; then ``warmup``: the ``warmup.*`` stages of both
    calls (newref's must have loaded the kernel library, predict's
-   translated its small table, and each must have been joined);
+   translated its small table, and each must have been joined); each
+   predict line (and phase 7's) carries ``z_rows``, ``ops.stats.Z_ROWS``
+   over the call, which must show every null-table row of the z-scores
+   taking the native pass; then ``z_sums`` (:func:`phase_z_sums`, host
+   only): the z-scores' null sums at the two benchmark cells' shapes;
 6. cold -- what a fresh process pays (:func:`phase_cold`): the
    interpreter alone, ``import torch`` (walls and ``-X importtime``'s
    largest modules), and a probe process that times the imports,
@@ -501,14 +505,17 @@ def phase_predict(ref, case, tag, want_gain_chr, check_dispatch=False):
     import torch
 
     from wisecondorx_tpu_torch import cli
+    from wisecondorx_tpu_torch.ops import stats
     from wisecondorx_tpu_torch.utils.log import reset_stage_times, stage_times
 
     outid = os.path.join(WORK, tag)
     reset_stage_times()
+    stats.reset_z_row_counts()
     t0 = time.perf_counter()
     cli.main(["predict", case, ref, outid, "--bed", "--device", CLI_DEVICE])
     wall = time.perf_counter() - t0
     stages = stage_times()
+    z_rows = _z_rows_native(tag)
     gender, rows, whole = read_calls(outid, ref)
     tables = tables_vs_plain(ref, gender, torch.device(CLI_DEVICE))
     dispatch = (dispatch_without_sync(ref, case, torch.device(CLI_DEVICE), BINSIZE)
@@ -517,13 +524,95 @@ def phase_predict(ref, case, tag, want_gain_chr, check_dispatch=False):
          cbs_seconds=round(stages["predict.cbs"], 3),
          aberrations=[f"{r[0]}:{r[1]}-{r[2]}:{r[-1]}" for r in rows],
          whole_chromosome=whole, tables=tables, dispatch=dispatch,
-         stages={k: round(v, 3) for k, v in stages.items()})
+         z_rows=z_rows, stages={k: round(v, 3) for k, v in stages.items()})
     planted = set() if want_gain_chr is None else {f"{want_gain_chr}:gain"}
     if not planted <= set(whole):
         raise AssertionError(f"{tag}: no chr{want_gain_chr} gain in {rows}")
     if set(whole) - planted:
         raise AssertionError(f"{tag}: whole-chromosome calls {whole}")
     return {"seconds": wall, "stages": {k: round(v, 3) for k, v in stages.items()}}
+
+
+def _z_rows_native(label):
+    """``ops.stats.Z_ROWS`` since its reset; raises unless every null-table
+    row of the z-scores took the native pass."""
+    from wisecondorx_tpu_torch.ops import stats
+
+    z_rows = dict(stats.Z_ROWS)
+    if z_rows["numpy"] or not z_rows["native"]:
+        raise AssertionError(f"{label}: z-score rows by route {z_rows}")
+    return z_rows
+
+
+def phase_z_sums(reps=9):
+    """The segment z-score's null sums on the host at the predict cells'
+    shapes (100 kb NIPT, 50 kb CNV; null width 100, 24 chromosomes, float32
+    ratios, 1 % NaN and 0.1 % inf nulls): ``get_z_score`` over the
+    chromosomes and over 72 CBS-like segments on the native pass and on
+    numpy (equal by ``repr``), the native pass alone, and its one-pass
+    bound, the table's bytes over the rate at which one core reads the
+    same table (a ``uint64`` sum of its bits, which numpy vectorises).
+    Medians of ``reps`` calls, the table warm."""
+    import numpy as np
+
+    from wisecondorx_tpu_torch.ops import stats
+
+    def median_ms(fn):
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+        return round(1e3 * sorted(times)[reps // 2], 3)
+
+    assert stats.load_null_sums() is not None, "the null-sum pass did not build"
+    rng = np.random.default_rng(SEED)
+    shapes = []
+    for name, n_bins in (("nipt100", 30830), ("cnv50", 61660)):
+        edges = np.linspace(0, n_bins, 25).astype(int)
+        table = rng.normal(0, 0.1, (n_bins, 100))
+        table[rng.random(table.shape) < 0.01] = np.nan
+        table[rng.random(table.shape) < 0.001] = np.inf
+        ratios = rng.normal(0, 0.1, n_bins).astype(np.float32)
+        ratios[rng.random(n_bins) < 0.05] = 0
+        weights = rng.random(n_bins)
+        cut = list(zip(edges[:-1], edges[1:]))
+        r = [ratios[a:b] for a, b in cut]
+        w = [weights[a:b] for a, b in cut]
+        nr = [table[a:b] for a, b in cut]
+        chromosomes = [[c, 0, b - a - 1, 0.01] for c, (a, b) in enumerate(cut)]
+        segments = []
+        for c, (a, b) in enumerate(cut):
+            cuts = sorted(int(x) for x in rng.choice(np.arange(1, b - a), 2,
+                                                      replace=False))
+            bounds = [0, *cuts, b - a]
+            segments += [[c, bounds[k], bounds[k + 1], 0.02] for k in range(3)]
+        read_ms = median_ms(lambda: table.view(np.uint64).sum())
+        record = {"shape": name, "bins": n_bins, "table_mb":
+                  round(table.nbytes / 1e6, 2), "read_ms": read_ms,
+                  "read_gb_s": round(table.nbytes / read_ms / 1e6, 2)}
+        for kind, rows in (("chromosomes", chromosomes), ("segments", segments)):
+            stats.reset_z_row_counts()
+            native = [repr(z) for z in stats.get_z_score(rows, r, w, nr)]
+            if stats.Z_ROWS["numpy"]:
+                raise AssertionError(f"z_sums {name}: {stats.Z_ROWS}")
+            record[f"{kind}_native_ms"] = median_ms(
+                lambda: stats.get_z_score(rows, r, w, nr))
+            record[f"{kind}_pass_ms"] = median_ms(
+                lambda: stats._native_null_sums(rows, r, w, nr))
+            with_numpy = stats._null_sums
+            stats._null_sums = False
+            try:
+                plain = [repr(z) for z in stats.get_z_score(rows, r, w, nr)]
+                record[f"{kind}_numpy_ms"] = median_ms(
+                    lambda: stats.get_z_score(rows, r, w, nr))
+            finally:
+                stats._null_sums = with_numpy
+            if native != plain:
+                raise AssertionError(f"z_sums {name} {kind}: routes differ")
+        shapes.append(record)
+    emit("z_sums", shapes=shapes)
+    return shapes
 
 
 def tables_vs_plain(ref, gender, device, maskrepeats=5):
@@ -852,13 +941,14 @@ def phase_predict_batch(ref, plate, t21_outid, device):
     reference path (:func:`_unplanted_calls`), and the trisomy-21 sample's
     segments and calls equal to its single-sample predict's."""
     from wisecondorx_tpu_torch import cli
-    from wisecondorx_tpu_torch.ops import cbs
+    from wisecondorx_tpu_torch.ops import cbs, stats
     from wisecondorx_tpu_torch.utils.log import reset_stage_times, stage_times
 
     outdir = os.path.join(WORK, "plate_out")
     reset_stage_times()
     cbs.reset_round_counts()
     cbs.reset_launch_counts()
+    stats.reset_z_row_counts()
     t0 = time.perf_counter()
     try:
         cli.main(["predict-batch", ref, outdir, "--bed", "--device", CLI_DEVICE,
@@ -870,6 +960,7 @@ def phase_predict_batch(ref, plate, t21_outid, device):
     wall = time.perf_counter() - t0
     rounds = dict(cbs.ROUNDS)
     launches = dict(cbs.LAUNCHES)
+    z_rows = _z_rows_native("predict-batch")
     stages = {k: round(v, 3) for k, v in stage_times().items()}
     if code != 3:
         raise AssertionError(f"predict-batch exited {code}, want 3")
@@ -905,7 +996,7 @@ def phase_predict_batch(ref, plate, t21_outid, device):
     problems += _batch_vs_single(os.path.join(outdir, "case_t21"), t21_outid)
     emit("predict_batch", samples=len(scored), exit_code=code,
          seconds=round(wall, 3), seconds_per_sample=round(wall / len(scored), 4),
-         cbs_rounds=rounds, cbs_launches=launches, calls=calls,
+         cbs_rounds=rounds, cbs_launches=launches, z_rows=z_rows, calls=calls,
          unplanted=unplanted, stages=stages)
     if rounds["device"] < 1 or rounds["host"]:
         raise AssertionError(f"predict-batch CBS rounds {rounds}: not the device stream")
@@ -2888,6 +2979,7 @@ def main():
             for call, record in (("newref", newref_record),
                                  ("predict", predict_record))}
     emit("warmup", stages=warm)
+    phase_z_sums()
     missing = ({"warmup.wait.newref"} - set(warm["newref"])) | (
         {"warmup.wait.predict"} - set(warm["predict"]))
     if missing:

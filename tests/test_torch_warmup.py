@@ -10,7 +10,7 @@ CPU, where it runs at its tiny size on the kernels' plain versions:
   thread behind;
 * only newref's warm-up loads the kernel library: predict and
   predict-batch run with a library that does not build; only theirs load
-  the ``_bins.bed`` row formatter;
+  the ``_bins.bed`` row formatter and the z-score's null-sum pass;
 * it touches neither numpy's global RandomState nor torch's generator;
 * it launches nothing the main path's counters count;
 * it runs once per process and device (again only after a failure).
@@ -34,6 +34,7 @@ from wisecondorx_tpu_torch.models import ref_loader, reference
 from wisecondorx_tpu_torch.ops import _build
 from wisecondorx_tpu_torch.ops import cbs as tcbs
 from wisecondorx_tpu_torch.ops import knn_cuda
+from wisecondorx_tpu_torch.ops import stats
 from wisecondorx_tpu_torch.output import tables
 from wisecondorx_tpu_torch.utils import warmup
 from wisecondorx_tpu_torch.utils.log import reset_stage_times, stage_times
@@ -191,18 +192,22 @@ def test_only_newref_warmup_loads_the_kernel_library(cohort, tmp_path,
 @pytest.mark.parametrize("kind", ["predict", "predict-batch"])
 def test_predict_warmups_load_the_row_formatter(cohort, monkeypatch, kind):
     """predict's and predict-batch's warm-ups load the ``_bins.bed`` row
-    formatter, so the first table a process writes does not build or load
-    it on the critical path; newref's does not."""
+    formatter and the z-score's null-sum pass, so the first table a
+    process writes does not build or load either on the critical path;
+    newref's does not."""
     _, _, _, ref = cohort
     monkeypatch.setattr(tables, "_formatter", None)
+    monkeypatch.setattr(stats, "_null_sums", None)
     reset_stage_times()
     warmup.start_warmup([CPU]).result()
     assert tables._formatter is None
+    assert stats._null_sums is None
     if kind == "predict":
         warmup.start_predict_warmup(ref, CPU).result()
     else:
         warmup.start_predict_batch_warmup(ref, [CPU]).result()
     assert tables._formatter
+    assert stats._null_sums
     assert "warmup.tables" in stage_times()
 
 

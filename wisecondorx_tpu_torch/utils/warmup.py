@@ -12,11 +12,12 @@ The CLIs start a warm-up on daemon threads before they read their inputs:
 :func:`start_warmup` (newref: the round trip and the kernel library),
 :func:`start_predict_warmup` and :func:`start_predict_batch_warmup` (the
 round trip, the translation of a small neighbour table at the reference's
-``k``, and the load of the ``_bins.bed`` row formatter, a g++ build in a
-fresh checkout).  On CUDA no program is compiled per shape, so unlike
-the JAX module the warm-up plans no pass shapes; what a first launch of
-the other kernel families costs, and why nothing more is warmed, is
-measured in PERF.md (chip_smoke.py's ``cold`` phase).
+``k``, and the load of the ``_bins.bed`` row formatter and of the
+z-score's null-sum pass, a g++ build each in a fresh checkout).  On CUDA
+no program is compiled per shape, so unlike the JAX module the warm-up
+plans no pass shapes; what a first launch of the other kernel families
+costs, and why nothing more is warmed, is measured in PERF.md
+(chip_smoke.py's ``cold`` phase).
 
 Unlike the JAX module, nothing here is best effort: a warm-up is a
 :class:`Warmup` whose ``result()`` the main path calls just before its own
@@ -93,13 +94,16 @@ def _warm_library(device) -> None:
 
 
 def _warm_tables() -> None:
-    """Build if needed and load the ``_bins.bed`` row formatter (host
-    only; once per process).  A formatter that does not build fails
-    nothing: the rows then take the Python loop (``tables.load_formatter``)."""
+    """Build if needed and load the ``_bins.bed`` row formatter and the
+    z-score's null-sum pass (host only; once per process).  A library that
+    does not build fails nothing: the rows then take the Python loop
+    (``tables.load_formatter``), the sums numpy (``stats.load_null_sums``)."""
+    from wisecondorx_tpu_torch.ops import stats
     from wisecondorx_tpu_torch.output import tables
 
     with stage_timer("warmup.tables", trace=False):
         tables.load_formatter()
+        stats.load_null_sums()
 
 
 def warm_translate(device, k: int) -> None:
@@ -142,8 +146,8 @@ def start_warmup(devices) -> Warmup:
 def start_predict_warmup(ref_path, device) -> Warmup:
     """predict's warm-up on ``device``: the round trip, then
     :func:`warm_translate` at the reference's ``k``, read from the npz
-    headers without its tables, then the row formatter
-    (:func:`_warm_tables`).  Join it before the loader's first upload."""
+    headers without its tables, then the row formatter and the null-sum
+    pass (:func:`_warm_tables`).  Join it before the loader's first upload."""
     return start_predict_batch_warmup(ref_path, [device])
 
 
