@@ -22,8 +22,7 @@ import numpy as np
 import torch
 
 from wisecondorx_tpu_torch.output import layout as L
-from wisecondorx_tpu_torch.output import png
-from wisecondorx_tpu_torch.output.raster import render_scene
+from wisecondorx_tpu_torch.output import png, raster
 from wisecondorx_tpu_torch.utils.log import stage_timer
 
 
@@ -361,13 +360,18 @@ def build_scenes(bins, segments, cfg, ylim="def", regions=None,
 
 def render_pngs(items, device: torch.device, timer: str = "predict.plots"):
     """Rasterize each (path, scene) on ``device`` and write the PNGs:
-    stages ``<timer>.raster`` (to host memory) and ``<timer>.encode``."""
+    stages ``<timer>.raster`` (to host memory; span attributes ``figures``
+    and ``draws``, the draws of ``raster.render_scene``) and
+    ``<timer>.encode`` (``bytes``, the PNG bytes written)."""
     rasters = []
-    with stage_timer(f"{timer}.raster"):
+    with stage_timer(f"{timer}.raster") as span:
+        before = raster.DRAWS["draws"]
         for path, scene in items:
-            rasters.append((path, render_scene(scene, device).cpu().numpy()))
-    with stage_timer(f"{timer}.encode"):
-        png.write_pngs(rasters)
+            rasters.append((path, raster.render_scene(scene, device).cpu().numpy()))
+        span.add("figures", len(rasters))
+        span.add("draws", raster.DRAWS["draws"] - before)
+    with stage_timer(f"{timer}.encode") as span:
+        span.add("bytes", png.write_pngs(rasters))
 
 
 def write_plots(outid, bins, segments, cfg, ylim="def", regions=None,

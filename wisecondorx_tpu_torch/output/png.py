@@ -39,20 +39,22 @@ def encode_png(rgb: np.ndarray) -> bytes:
             + _chunk(b"IEND", b""))
 
 
-def write_png(path: str, rgb: np.ndarray) -> None:
-    """Write ``rgb`` (uint8 [H, W, 3]) to ``path`` as a PNG."""
+def write_png(path: str, rgb: np.ndarray) -> int:
+    """Write ``rgb`` (uint8 [H, W, 3]) to ``path`` as a PNG; the bytes
+    written."""
     data = encode_png(rgb)
     with open(path, "wb") as f:
         f.write(data)
+    return len(data)
 
 
-def write_pngs(items) -> None:
+def write_pngs(items) -> int:
     """Write each (path, rgb) of ``items`` on a pool of up to WORKERS
-    threads."""
+    threads; the bytes written."""
     items = list(items)
     with ThreadPoolExecutor(max_workers=max(1, min(WORKERS, len(items)))) as pool:
-        for fut in [pool.submit(write_png, p, rgb) for p, rgb in items]:
-            fut.result()
+        return sum(fut.result() for fut in
+                   [pool.submit(write_png, p, rgb) for p, rgb in items])
 
 
 def _unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:

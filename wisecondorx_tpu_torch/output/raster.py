@@ -32,6 +32,10 @@ from wisecondorx_tpu_torch.output import text as T
 
 #: Sub-pixel units of the disc test.
 FP = 64
+#: Draws made by :func:`render_scene` in this process (artists, axes,
+#: spines, titles, legends and suptitles), read by ``output.plots`` for
+#: its raster span.
+DRAWS = {"draws": 0}
 #: Disc-window elements handled per device step.
 DISC_BUDGET = 1 << 22
 BLACK = (0.0, 0.0, 0.0, 1.0)
@@ -447,8 +451,10 @@ def render_scene(scene: L.Scene, device: torch.device) -> torch.Tensor:
             draws.append((5.0, n + 3, lambda: _draw_legend(canvas, scene, ax)))
         for _, _, draw in sorted(draws, key=lambda d: (d[0], d[1])):
             draw()
+        DRAWS["draws"] += len(draws)
     if scene.suptitle is not None:
         t = scene.suptitle
         _text(canvas, scene, t.x * scene.width, scene.height * (1 - t.y), t.s,
               t.fontsize, t.color, 0.0, t.ha, t.va)
+        DRAWS["draws"] += 1
     return canvas.image
